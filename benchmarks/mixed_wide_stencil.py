@@ -1,11 +1,9 @@
-"""Where the bf16 matrix stream WINS: wide-stencil measurement.
+"""Where the bf16 matrix stream can win: wide-stencil measurement.
 
-``solve(..., matrix_dtype="bfloat16")`` warns on narrow (<= 9 diagonal)
-stencils because the measured full-solve economics there are a loss
-(docs/BENCH_NOTES.md round 4: 0.57-0.82x at n=2M 5-point).  The warning
-claims the split pays on WIDE stencils, where the diagonal planes — not
-the solver vectors — dominate the HBM traffic.  This script measures
-that claim on the 27-point 3-D Laplacian (utils/generate.py:
+``solve(..., matrix_dtype="bfloat16")`` halves the diagonal-plane
+stream.  The split can only pay on WIDE stencils, where the diagonal
+planes — not the solver vectors — dominate the memory traffic.  This
+script measures it on the 27-point 3-D Laplacian (utils/generate.py:
 poisson_3d_27pt): at 128^3 the f32 matrix stream is 27 planes x 8 MB
 = 226 MB/SpMV vs ~6 vector passes x 8 MB = 48 MB/iteration of vector
 traffic, so halving the matrix stream bounds the win at ~1.7x/iter.

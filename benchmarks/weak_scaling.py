@@ -2,10 +2,10 @@
 
 Row-partitioned CG on a 3-D Poisson system whose size grows with the
 device count (fixed rows per device), reporting per-step time and
-scaling efficiency.  On a single-chip environment this runs the
+scaling efficiency.  On a single-device environment this runs the
 simulated-mesh validation path (CPU virtual devices) to verify the
-distributed program compiles and converges at every width; on a real
-pod slice the same script measures true ICI scaling.
+distributed program compiles and converges at every width; on a host
+with several GPUs the same script measures real scaling.
 
     python benchmarks/weak_scaling.py --rows-per-device 250000 \
         --devices 1 2 4 8 [--platform cpu]
@@ -71,8 +71,7 @@ def run(rows_per_device: int, widths, platform):
         dt = (time.perf_counter() - t0) / iters
         assert np.isfinite(collect(r.x, da)).all()
         B = da.block_rows
-        # analytic collective volume per device per CG iteration
-        # (docs/BENCH_NOTES.md "Distributed collective-volume model"):
+        # analytic collective volume per device per CG iteration:
         # halo exchange bytes for the SpMV + 2 psum latencies for dots
         halo_bytes = (
             4 * B * (p - 1) if da.mode == "allgather" else 2 * 4 * B

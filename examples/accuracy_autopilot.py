@@ -1,8 +1,8 @@
 """Example: precision floors and automatic accuracy escalation.
 
 A single-precision Krylov solve cannot push its TRUE residual below
-~u_f32 * ||A|| * ||x|| no matter how many iterations it runs.  Round 4
-makes that limit a first-class part of the API:
+~u_f32 * ||A|| * ||x|| no matter how many iterations it runs.  The
+library makes that limit a first-class part of the API:
 
 * every verified-convergence solver reports ``floor_hit`` on its
   SolveResult — a MAX_ITERATIONS_REACHED exit that was actually a
@@ -12,8 +12,8 @@ makes that limit a first-class part of the API:
   cheap epsilon-vs-f32-representability pre-check) and re-routes the
   request through the double-word refinement
   (``cg_ir_df64`` / ``bicgstab_ir_df64``), delivering the reference's
-  f64-default accuracy contract (test/include/test_common.h:30-38) on
-  hardware without native float64.  Opt out with
+  f64-default accuracy contract (test/include/test_common.h:30-38) with
+  f32 storage.  Opt out with
   ``auto_escalate=False``.
 
     python examples/accuracy_autopilot.py [nx]

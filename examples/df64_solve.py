@@ -1,9 +1,9 @@
-"""Example: f64-grade solves on TPU hardware without native float64.
+"""Example: f64-grade solves with f32 storage.
 
 The reference library is templated over ``double`` with a 1e-8 residual
-contract (test/include/test_common.h:30-38); TPU v5e has no f64 unit.
-This example shows the double-word f32 chain that closes the gap ON the
-chip (docs/DESIGN.md §16):
+contract (test/include/test_common.h:30-38).  This example shows the
+double-word f32 chain that meets it with f32 storage (docs/DESIGN.md
+§16):
 
 * ``load_matrix_df`` / ``df_operator_from_host_csr`` — the operator's
   float64 values split exactly into (hi, lo) f32 planes, so the problem
@@ -11,8 +11,7 @@ chip (docs/DESIGN.md §16):
   stencils — gather-free shifted reads — or a DfEllMatrix otherwise);
 * ``cg_df64`` — the whole CG recurrence (SpMV, dots, scalar updates)
   runs in double-word f32 arithmetic (~2^-47 per op) inside one jitted
-  while_loop; measured 1.35x the per-iteration cost of plain f32 CG on
-  a 5.2M-nnz Poisson (v5e);
+  while_loop;
 * the result recombines to host float64 via ``DfSolveResult.x_f64()``.
 
     python examples/df64_solve.py [nx]

@@ -1,5 +1,5 @@
 """Example: distributed solve over a device mesh (works identically on a
-simulated CPU mesh and a real pod slice).
+simulated CPU mesh and on several GPUs).
 
     python examples/distributed_solve.py            # all local devices
     python examples/distributed_solve.py --cpu 8    # simulated 8-dev mesh

@@ -3,8 +3,8 @@ Poisson-class benchmark systems (solvers/multigrid.py).
 
     python examples/multigrid_solve.py [nx]
 
-At the 2M-row benchmark scale on a TPU v5e this converges in ~11
-iterations / ~35 ms, vs ~2000 iterations for plain CG.
+It converges in O(10) iterations at any grid size, where plain CG needs
+O(nx) (~2000 at nx = 1414).
 """
 
 import os

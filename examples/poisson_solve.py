@@ -1,4 +1,4 @@
-"""Example: solve a 2-D Poisson system end-to-end on one chip.
+"""Example: solve a 2-D Poisson system end-to-end on one device.
 
     python examples/poisson_solve.py [nx]
 """
@@ -19,7 +19,7 @@ from sparse_matrix_math_tpu.utils.profiling import solve_with_stats
 
 def main(nx: int = 256) -> None:
     a_csr = poisson_2d(nx, dtype=np.float32)
-    a = dia_from_csr(a_csr)  # stencil layout -> Pallas kernel on TPU
+    a = dia_from_csr(a_csr)  # stencil layout: gather-free shifted slices
     x_true = jnp.ones(a.shape[0], jnp.float32)
     b = a @ x_true
 

@@ -1,11 +1,11 @@
 """Example: unstructured and multi-RHS solves through the front-end.
 
 Shows the three things a user migrating from the reference library gets
-for free on TPU:
+for free:
 
-* ``auto_format=True`` — best_format picks the fast layout (DIA for
-  stencils, W-SELL for general patterns, RCM+W-SELL for scattered
-  numberings, R-SELL for zero-locality patterns) with zero knowledge;
+* ``auto_format=True`` — best_format picks the layout (matrix-free
+  stencil, DIA for other diagonal patterns, CSR otherwise) with zero
+  knowledge;
 * multi-RHS panels — ``solve(a, B)`` with B of shape (n, m) runs one
   batched (optionally preconditioned) CG: one SpMM per iteration feeds
   every column;

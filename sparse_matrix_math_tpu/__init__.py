@@ -1,49 +1,44 @@
-"""sparse_matrix_math_tpu — a TPU-native sparse iterative-solver framework.
+"""sparse_matrix_math_tpu — a sparse iterative-solver library in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the C++
-reference library vasil-pashov/sparse_matrix_math (see SURVEY.md):
+A JAX/XLA re-design with the capabilities of the C++ reference library
+vasil-pashov/sparse_matrix_math (see SURVEY.md):
 
-* sparse formats: Triplet/COO assembly, CSR, plus TPU compute layouts —
-  ELL (padded), DIA (stencil), HYB, W-SELL (windowed sliced-ELL, the
-  general-pattern Pallas fast path), and R-SELL (routed multi-pass
-  chain for zero-locality patterns); RCM reordering onto W-SELL
-* SpMV/SpMM family: rmult / rmult_add / rmult_sub (1-D and multi-RHS)
-  with XLA and Pallas paths (HBM-streamed window DMA past VMEM);
+* sparse formats: Triplet/COO assembly, CSR, ELL (padded), DIA
+  (diagonal storage), HYB, matrix-free grid stencils, and RCM
+  reordering (``ReorderedMatrix``)
+* SpMV/SpMM family: rmult / rmult_add / rmult_sub (1-D and multi-RHS);
   ``best_format`` auto-selection (also via ``solve(auto_format=True)``)
 * Krylov solvers as jitted while_loops: ConjugateGradient (plain +
   preconditioned + pipelined + mixed-precision + deflated + multi-RHS),
   BiCGSymmetric, ConjugateGradientSquared, BiCGStab, restarted GMRES,
   Chebyshev semi-iteration; ``cg_df64``/``bicgstab_df64`` run the whole
-  recurrence in double-word f32 (ops/df32.py) for 1e-8-grade solves on
-  hardware without native f64 (pair with ``load_matrix_df``), and
-  ``cg_ir_df64`` reaches the same bar at plain-f32 iteration cost via
-  true-residual iterative refinement (solvers/ir_df64.py)
-* preconditioners: Identity, Jacobi, Symmetric Gauss-Seidel, ILU(0),
-  IC(0) with TPU triangular-solve strategies (fused Pallas halo-sweep
-  kernels on the padded stencil domain), Chebyshev polynomial;
-  geometric multigrid (PoissonMultigrid) as solver or PCG
-  preconditioner
+  recurrence in double-word f32 (ops/df32.py) for 1e-8-grade solves
+  with f32 storage (pair with ``load_matrix_df``), and ``cg_ir_df64``
+  reaches the same bar at plain-f32 iteration cost via true-residual
+  iterative refinement (solvers/ir_df64.py)
+* preconditioners: Identity, Jacobi, Symmetric Gauss-Seidel (CSR and
+  DIA factors), ILU(0), IC(0) with parallel triangular-solve strategies,
+  Chebyshev polynomial; geometric multigrid (PoissonMultigrid) as
+  solver or PCG preconditioner
 * I/O: Matrix Market (.mtx) + SMMDT dense-text, extension dispatch
 * distribution: 1-D mesh row partitioning via shard_map with psum
   reductions and neighbor-halo ppermute (all_gather where the pattern
-  demands) for CSR / DIA / W-SELL / R-SELL / multigrid (parallel/)
+  demands) for CSR / DIA / stencil / multigrid (parallel/)
 """
 
-from .formats import PerformanceWarning, best_format
+from .formats import best_format
 from .formats.stencil import GridStencilMatrix, try_grid_stencil_from_csr
 from .formats.reorder import (
     ReorderedMatrix,
     permute_csr,
     rcm_permutation,
-    reorder_to_wsell,
+    reorder_rcm,
 )
 from .formats.csr import CSRMatrix, csr_from_coo, csr_from_dense, csr_from_triplet
 from .formats.dia import DIAMatrix, dia_from_csr, try_dia_from_csr
 from .formats.ell import ELLMatrix, ell_from_csr
 from .formats.hyb import HYBMatrix, hyb_from_csr
 from .formats.triplet import COOArrays, TripletMatrix, coo_from_arrays
-from .formats.rsell import RoutedMatrix, routed_from_csr, try_routed_from_csr
-from .formats.wsell import WSellMatrix, try_wsell_from_csr, wsell_from_csr
 from .io.dispatch import load_matrix, load_matrix_csr, load_matrix_df
 from .io.matrix_market import MatrixLoadStatus, MatrixMarketError, load_matrix_market
 from .io.smmdt import load_smmdt, save_dense_text
@@ -99,8 +94,6 @@ __all__ = [
     "ELLMatrix", "ell_from_csr",
     "HYBMatrix", "hyb_from_csr",
     "COOArrays", "TripletMatrix", "coo_from_arrays",
-    "WSellMatrix", "wsell_from_csr", "try_wsell_from_csr",
-    "RoutedMatrix", "routed_from_csr", "try_routed_from_csr",
     "load_matrix", "load_matrix_csr", "load_matrix_df", "load_matrix_market",
     "load_smmdt",
     "save_dense_text", "MatrixLoadStatus", "MatrixMarketError",
@@ -118,8 +111,7 @@ __all__ = [
     "df_from_host", "df_to_host", "df_operator_from_host_csr",
     "cg_multi", "MultiSolveResult", "PoissonMultigrid", "best_format",
     "GridStencilMatrix", "try_grid_stencil_from_csr",
-    "PerformanceWarning",
-    "ReorderedMatrix", "rcm_permutation", "permute_csr", "reorder_to_wsell",
+    "ReorderedMatrix", "rcm_permutation", "permute_csr", "reorder_rcm",
     "SolveResult", "SolverStatus", "SolverConfig", "solve",
     "checkpointed_solve", "load_checkpoint", "save_checkpoint",
     "load_csr_npz", "save_csr_npz",

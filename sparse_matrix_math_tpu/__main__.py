@@ -107,23 +107,6 @@ def cmd_bench_spmv(args) -> int:
     if dia is not None:
         report["dia"] = spmv_throughput(dia, iters=args.iters)
     report["ell"] = spmv_throughput(ell_from_csr(a), iters=args.iters)
-    try:
-        from .formats.wsell import wsell_from_csr
-
-        report["wsell"] = spmv_throughput(
-            wsell_from_csr(a), iters=args.iters
-        )
-    except ValueError:
-        report["wsell"] = None  # pattern pads beyond the W-SELL cap
-    if args.routed:
-        from .formats.rsell import try_routed_from_csr
-
-        rmat = try_routed_from_csr(a)
-        # None: the chain would pad beyond the R-SELL cap
-        report["rsell"] = (
-            spmv_throughput(rmat, iters=args.iters)
-            if rmat is not None else None
-        )
     print(json.dumps(report))
     return 0
 
@@ -155,12 +138,12 @@ def main(argv=None) -> int:
     pb = sub.add_parser("bench-spmv", help="SpMV throughput per format")
     pb.add_argument("matrix")
     pb.add_argument("--iters", type=int, default=20)
-    pb.add_argument("--routed", action="store_true",
-                    help="also time the routed (R-SELL) chain — its "
-                         "build is minutes at 10M+ nnz, so it is opt-in")
     pb.set_defaults(fn=cmd_bench_spmv)
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
     return args.fn(args)
 
 

@@ -2,153 +2,29 @@ from .csr import CSRMatrix, csr_from_coo, csr_from_dense, csr_from_triplet
 from .dia import DIAMatrix, dia_from_csr, try_dia_from_csr
 from .ell import ELLMatrix, ell_from_csr
 from .hyb import HYBMatrix, hyb_from_csr
-from .rsell import RoutedMatrix, routed_from_csr, try_routed_from_csr
 from .stencil import GridStencilMatrix, try_grid_stencil_from_csr
-from .wsell import WSellMatrix, try_wsell_from_csr, wsell_from_csr
 from .reorder import (
     ReorderedMatrix,
     permute_csr,
     rcm_permutation,
-    reorder_to_wsell,
+    reorder_rcm,
 )
 from .triplet import COOArrays, TripletMatrix, coo_from_arrays
 
 
-def best_format(csr, *, max_slot_ratio: float = 8.0, allow_reorder: bool = True):
-    """Pick the fastest TPU layout for a CSR matrix's pattern.
+def best_format(csr):
+    """Pick the operator layout for a CSR matrix's pattern.
 
-    Selection order mirrors the measured kernel hierarchy
-    (docs/BENCH_NOTES.md):
-
-    0. Grid stencil — constant-coefficient tensor-product-grid operators
+    1. Grid stencil — constant-coefficient tensor-product-grid operators
        (Poisson/convection-diffusion class, verified entry-for-entry):
-       matrix-free, ZERO matrix traffic, ~1.8x the padded-DIA kernel
-       in-solver (formats/stencil.py);
-    1. DIA — diagonal-structured patterns (stencils): the Pallas padded
-       kernels run in-solver at HBM bandwidth;
-    2. W-SELL — general patterns with window locality (banded-broken,
-       mesh-like, reservoir-class): the two-step-gather kernel,
-       >= 10x the reference CPU core;
-    3. RCM + W-SELL — scattered patterns whose bandwidth a reverse
-       Cuthill-McKee renumbering reduces (shuffled meshes, arbitrary
-       node numberings); solvers hoist the permutation out of their
-       loops (formats/reorder.py).  Skipped with ``allow_reorder=False``
-       or for rectangular matrices;
-    4. R-SELL — zero-tile-locality patterns at scale (uniform-random
-       class): the routed multi-pass chain (formats/rsell.py), engaged
-       only when the matrix is large enough that the XLA segment-sum
-       path is hopeless and no windowed layout fits;
-    5. CSR itself — small matrices (the dense-MXU rescue) and anything
-       the routed chain cannot pack.
+       matrix-free, zero matrix traffic (formats/stencil.py);
+    2. DIA — diagonal-structured patterns: gather-free shifted slices;
+    3. CSR itself — every other pattern.
 
     The returned object plugs into every solver/``rmult`` call site.
     """
     dia = try_dia_from_csr(csr)
-    if dia is not None:
-        st = try_grid_stencil_from_csr(csr, dia=dia)
-        return st if st is not None else dia
-    ws = try_wsell_from_csr(csr, max_slot_ratio=max_slot_ratio)
-    if ws is not None and ws.slot_ratio <= 3.0:
-        # tight enough that a renumbering can't buy much
-        return ws
-    if allow_reorder and csr.shape[0] == csr.shape[1]:
-        ro = reorder_to_wsell(csr, max_slot_ratio=max_slot_ratio)
-        if ro is not None and (
-            ws is None or ro.inner.slot_ratio < 0.7 * ws.slot_ratio
-        ):
-            # the kernel cost is proportional to slot_ratio and the
-            # permutation is hoisted out of solver loops, so a clearly
-            # lower reordered ratio wins; otherwise keep the raw layout
-            # (no permutation plumbing at all)
-            return ro
-    if ws is not None:
-        return ws
-    # zero-locality at scale: below ~2048 rows the dense-MXU CSR rescue
-    # wins outright; above it the XLA gather path is ~0.06 GNNZ/s, so a
-    # routed chain at any sane ratio beats it
-    if csr.shape[0] > 2048 and csr.nnz >= 100_000:
-        ra = try_routed_from_csr(csr, max_slot_ratio=12.0)
-        if ra is not None:
-            return ra
-    return csr
-
-
-# -- default-path safety at scale (VERDICT r2 item 6) -------------------------
-#
-# A plain CSRMatrix on TPU runs SpMV through the XLA gather/segment-sum
-# path at ~0.06 GNNZ/s — 100-2500x slower than the Pallas layouts.  At
-# small n that's irrelevant (and the dense-MXU rescue covers it); at
-# scale it's a silent cliff a user hits just by calling cg(csr, b).
-# Every solver front door (formats/reorder.py:reorder_hoisted) therefore
-# auto-routes large CSR inputs through the CHEAP format upgrades before
-# solving.  Auto-routing never engages the routed (R-SELL) chain — its
-# build is a deliberate, documented investment — it warns instead.
-#
-# Opt out with SMM_NO_AUTOROUTE=1 (or by passing a non-CSR operator).
-
-_AUTOROUTE_MIN_ROWS = 2048
-_AUTOROUTE_MIN_NNZ = 100_000
-
-
-def _autoroute_active() -> bool:
-    import os
-
-    import jax
-
-    if os.environ.get("SMM_NO_AUTOROUTE"):
-        return False
-    if os.environ.get("SMM_FORCE_AUTOROUTE"):  # tests, CPU benches
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def auto_route_for_solve(a, *, has_preconditioner: bool = False):
-    """Route a large CSR matrix to a fast TPU layout before a solve.
-
-    Returns ``a`` unchanged unless ``a`` is a CSRMatrix at scale on TPU.
-    Tries DIA, then W-SELL, then (only when no preconditioner is bound —
-    a factor built in the original ordering would be wrong in a permuted
-    domain) RCM+W-SELL.  Patterns none of those serve get a loud
-    PerformanceWarning pointing at best_format/auto_format, and the CSR
-    path runs as requested.  The routed operator is cached on the matrix
-    object, so repeated solves pay the build once.
-    """
-    if not isinstance(a, CSRMatrix):
-        return a
-    if a.shape[0] < _AUTOROUTE_MIN_ROWS or a.nnz < _AUTOROUTE_MIN_NNZ:
-        return a
-    if not _autoroute_active():
-        return a
-    cached = getattr(a, "_auto_routed", None)
-    if cached is not None:
-        kind, routed = cached
-        if kind != "reorder" or not has_preconditioner:
-            return routed
-    routed = try_dia_from_csr(a)
-    kind = "dia"
-    if routed is None:
-        routed = try_wsell_from_csr(a, max_slot_ratio=8.0)
-        kind = "wsell"
-    if routed is None and not has_preconditioner and a.shape[0] == a.shape[1]:
-        routed = reorder_to_wsell(a, max_slot_ratio=8.0)
-        kind = "reorder"
-    if routed is None:
-        import warnings
-
-        warnings.warn(
-            f"solving a {a.shape[0]}x{a.shape[1]} CSR matrix "
-            f"({a.nnz} nnz) through the XLA gather path — on TPU this is "
-            "orders of magnitude slower than the Pallas layouts.  No "
-            "windowed layout fits this pattern cheaply; consider "
-            "best_format(a) / solve(..., auto_format=True) (may build "
-            "the routed R-SELL chain) or a coarser tolerance.",
-            PerformanceWarning,
-            stacklevel=4,
-        )
-        return a
-    object.__setattr__(a, "_auto_routed", (kind, routed))
-    return routed
-
-
-class PerformanceWarning(UserWarning):
-    """A public API call is about to run far below hardware speed."""
+    if dia is None:
+        return csr
+    st = try_grid_stencil_from_csr(csr, dia=dia)
+    return st if st is not None else dia

@@ -1,6 +1,6 @@
 """CSR (compressed sparse row) device matrix.
 
-TPU-native re-design of the reference ``CSRMatrix`` (reference:
+Re-design of the reference ``CSRMatrix`` (reference:
 include/sparse_matrix_math.h:1008-1651).  The reference stores three
 heap arrays — ``values`` (nnz), ``positions`` (column indices, sorted
 ascending within each row, h:1246-1251), ``start`` (row pointers,

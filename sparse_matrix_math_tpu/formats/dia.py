@@ -4,12 +4,11 @@ Structured matrices (finite-difference / finite-element stencils like the
 reference's test suite and the 2D/5-point Poisson benchmark,
 BASELINE.json config 4) have all nonzeros on a handful of diagonals.
 Storing them per-diagonal turns SpMV into a few shifted elementwise FMAs —
-no gather at all, which on TPU means pure VPU work at HBM bandwidth:
+no gather at all, so the SpMV runs at memory bandwidth:
 
     y = sum_d diags[d, :] * shift(x, offsets[d])
 
-The reference has no equivalent (its only compute format is CSR); this is
-the TPU-native redesign of the same capability.
+The reference has no equivalent (its only compute format is CSR).
 """
 
 from __future__ import annotations

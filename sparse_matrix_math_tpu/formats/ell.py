@@ -1,18 +1,17 @@
-"""ELLPACK (padded) sparse format — the TPU-friendly compute layout.
+"""ELLPACK (padded) sparse format — the rectangular compute layout.
 
 The reference's CSR SpMV walks ragged rows with a scalar FMA loop
-(include/sparse_matrix_math.h:1478-1491).  TPU vector units need
-rectangular data, so the compute format here pads every row to the same
-slot count K (the max row nnz, optionally capped per row block):
+(include/sparse_matrix_math.h:1478-1491).  Vector units want
+rectangular data, so this format pads every row to the same slot count
+K (the max row nnz):
 
 * ``vals``: (rows_padded, K) — stored values, zero-padded
 * ``cols``: (rows_padded, K) — column index per slot; padding slots point
   at column 0 with value 0, so ``x[cols] * vals`` is exact with no masking.
 
 SpMV becomes ``y = sum_k vals[:, k] * x[cols[:, k]]`` — a dense gather +
-FMA that XLA vectorises, and that the Pallas kernel
-(ops/pallas_spmv.py) streams through VMEM.  Rows are padded to a multiple
-of 8 (f32 sublane count) for tile alignment.
+FMA that XLA vectorises.  Rows are padded to a multiple of 8 for tile
+alignment.
 """
 
 from __future__ import annotations

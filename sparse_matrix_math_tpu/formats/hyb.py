@@ -5,12 +5,12 @@ FEM matrices concentrate on a band plus stragglers).  HYB splits a CSR
 matrix into
 
 * a :class:`DIAMatrix` holding every diagonal whose fill ratio clears a
-  threshold — SpMV'd by the Pallas stencil kernel at bandwidth speed, and
+  threshold — SpMV'd by shifted slices at bandwidth speed, and
 * a CSR remainder for the leftover entries — SpMV'd by the XLA
   segment-sum path (cheap when the remainder is small).
 
 ``y = dia @ x + rest @ x``.  The reference has no equivalent (CSR only);
-this is the TPU-native answer to its general-matrix coverage: structure
+this is the answer to its general-matrix coverage: structure
 runs at stencil speed, irregularity degrades gracefully.
 """
 

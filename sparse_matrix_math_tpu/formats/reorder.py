@@ -1,24 +1,19 @@
-"""Bandwidth-reducing reordering: the on-ramp to the W-SELL fast path.
+"""Bandwidth-reducing reordering (reverse Cuthill-McKee).
 
-W-SELL (formats/wsell.py) serves any pattern whose nonzeros cluster into
-(1024-row slab x 1024-column window) tiles; scattered patterns — shuffled
-meshes, arbitrarily-numbered graphs, permuted banded systems — pad beyond
-its ratio cap and fall back to the slow XLA CSR path (~0.06 GNNZ/s on
-TPU).  The classical cure is a symmetric BANDWIDTH-REDUCING permutation:
-reverse Cuthill-McKee (RCM) renumbers the rows/columns by breadth-first
-levels so the permuted matrix is banded — which W-SELL colours nearly
-perfectly.  The reference has no analogue (its scalar CSR loop is
-pattern-indifferent, h:1458-1515); on TPU the permutation IS the
-difference between the gather-bound path and the Pallas kernel.
+Scattered patterns — shuffled meshes, arbitrarily-numbered graphs,
+permuted banded systems — make every SpMV gather ``x`` from all over
+memory.  The classical cure is a symmetric BANDWIDTH-REDUCING
+permutation: reverse Cuthill-McKee (RCM) renumbers the rows/columns by
+breadth-first levels so the permuted matrix is banded, and the gathers
+of each row block then read a narrow, cache-resident window of ``x``.
+The reference has no analogue (its scalar CSR loop is
+pattern-indifferent, h:1458-1515).
 
-Pipeline (`reorder_to_wsell`):
+Pipeline (`reorder_rcm`):
 
 1. ``rcm_permutation`` — RCM on the symmetrised pattern (SciPy's
    csgraph implementation when available, else a pure-NumPy BFS);
-2. ``permute_csr`` — host-side A' = A[p, :][:, p];
-3. W-SELL layout of A'; refuses (returns None) if the permuted pattern
-   STILL pads beyond the cap (pattern genuinely tile-sparse, e.g.
-   uniform random at very low density).
+2. ``permute_csr`` — host-side A' = A[p, :][:, p].
 
 The result is wrapped in :class:`ReorderedMatrix`, which acts as the
 ORIGINAL operator A everywhere (``rmult`` routes x through the
@@ -39,13 +34,12 @@ import numpy as np
 
 from .csr import CSRMatrix, csr_from_coo
 from .triplet import COOArrays
-from .wsell import try_wsell_from_csr
 
 __all__ = [
     "ReorderedMatrix",
     "rcm_permutation",
     "permute_csr",
-    "reorder_to_wsell",
+    "reorder_rcm",
 ]
 
 
@@ -143,9 +137,9 @@ class ReorderedMatrix:
     permutation outside their iteration loop instead — see
     :func:`reorder_hoisted`.
 
-    ``inner`` is the fast-format operator for A' = A[perm][:, perm]
-    (typically a WSellMatrix); ``inner_csr`` keeps the permuted CSR for
-    preconditioner factorisations in the permuted domain.
+    ``inner`` is the operator for A' = A[perm][:, perm] (any format);
+    ``inner_csr`` keeps the permuted CSR for preconditioner
+    factorisations in the permuted domain.
     """
 
     inner: object
@@ -180,24 +174,15 @@ class ReorderedMatrix:
         return inner_dense[self.iperm][:, self.iperm]
 
 
-def reorder_to_wsell(
-    csr: CSRMatrix, *, max_slot_ratio: float = 8.0
-) -> Optional[ReorderedMatrix]:
-    """RCM-permute ``csr`` and lay the result out as W-SELL.
-
-    Returns None when even the permuted pattern pads beyond the cap —
-    the pattern is genuinely tile-sparse and the XLA CSR path remains
-    the right answer.
-    """
+def reorder_rcm(csr: CSRMatrix) -> ReorderedMatrix:
+    """RCM-permute a square ``csr``; the permuted CSR is the inner
+    operator."""
     perm = rcm_permutation(csr)
     permuted = permute_csr(csr, perm)
-    ws = try_wsell_from_csr(permuted, max_slot_ratio=max_slot_ratio)
-    if ws is None:
-        return None
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(perm.shape[0])
     return ReorderedMatrix(
-        inner=ws,
+        inner=permuted,
         inner_csr=permuted,
         perm=jnp.asarray(perm.astype(np.int32)),
         iperm=jnp.asarray(iperm.astype(np.int32)),
@@ -209,7 +194,7 @@ def reorder_to_wsell(
 def reorder_hoisted(solver_fn):
     """Wrap a solver entry ``f(a, b, x0=None, **kw) -> SolveResult`` so a
     ReorderedMatrix is solved ENTIRELY in the permuted domain: permute b
-    (and x0) once, run the fast-format solve, un-permute x once — zero
+    (and x0) once, run the inner solve, un-permute x once — zero
     per-iteration permutation cost.  Residual norms, iteration counts
     and statuses are permutation-invariant and pass through unchanged.
     """
@@ -217,14 +202,6 @@ def reorder_hoisted(solver_fn):
 
     @functools.wraps(solver_fn)
     def wrapped(a, b, x0=None, *args, **kwargs):
-        if isinstance(a, CSRMatrix):
-            # default-path safety: large CSR on TPU auto-routes to a
-            # fast layout (formats/__init__.py:auto_route_for_solve)
-            from . import auto_route_for_solve
-
-            a = auto_route_for_solve(
-                a, has_preconditioner=kwargs.get("preconditioner") is not None
-            )
         if not isinstance(a, ReorderedMatrix):
             return solver_fn(a, b, x0, *args, **kwargs)
         bp = a.to_permuted(jnp.asarray(b))

@@ -1,6 +1,6 @@
 """Triplet (COO / coordinate) sparse-matrix assembly containers.
 
-TPU-native re-design of the reference's ``_TripletMatrixCommon`` family
+Re-design of the reference's ``_TripletMatrixCommon`` family
 (reference: include/sparse_matrix_math.h:487-684).  The reference stores
 entries in a ``std::map``/``std::unordered_map`` keyed by ``row<<32|col`` and
 accumulates duplicates on ``addEntry`` (sparse_matrix_math.h:607-618).  Here:

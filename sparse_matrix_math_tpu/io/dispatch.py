@@ -51,7 +51,7 @@ def load_matrix_df(
 
     The reference loads into ``double`` matrices end-to-end
     (h:2648-2669 dispatch over ``TripletMatrix<double>``); this is the
-    equivalent for TPU hardware without f64: values are parsed on the
+    equivalent with f32 storage: values are parsed on the
     host in float64 and split EXACTLY into (hi, lo) float32 planes
     (ops/df32.py), so the operator reaching the device carries the full
     f64 data.  Pair with :func:`~..solvers.df64.cg_df64` for 1e-8-grade

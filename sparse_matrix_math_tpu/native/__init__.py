@@ -21,14 +21,6 @@ __all__ = [
     "ic0_factorize_native",
     "ilu0_factorize_native",
     "mtx_read_native",
-    "wsell_color_native",
-    "stream_pack_cf_native",
-    "sort_perm_native",
-    "stream_group_native",
-    "stream_emit_native",
-    "stream_level_native",
-    "wsell_plan_native",
-    "wsell_emit_native",
 ]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -55,8 +47,6 @@ def _so_path() -> str:
     return os.path.join(_BUILD_DIR, f"libsmm_native.{h}.so")
 
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-_u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
-_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
@@ -74,13 +64,7 @@ def _compile() -> Optional[str]:
             "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
             _SRC, "-o", tmp,
         ]
-        try:  # OpenMP first (the hot builders are parallelised with it)
-            subprocess.run(
-                base + ["-fopenmp"], check=True, capture_output=True,
-                timeout=120,
-            )
-        except subprocess.SubprocessError:
-            subprocess.run(base, check=True, capture_output=True, timeout=120)
+        subprocess.run(base, check=True, capture_output=True, timeout=120)
         os.replace(tmp, so)
         # opportunistically drop superseded builds (best-effort; a build
         # still mapped by another live process keeps working — unlink
@@ -141,47 +125,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int64,
         _i64p, _i64p, _f64p,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-    ]
-    lib.smm_wsell_color.restype = ctypes.c_int64
-    lib.smm_wsell_color.argtypes = [
-        ctypes.c_int64, ctypes.c_int64,
-        _i64p, _i64p, _i64p, _i64p, _i64p, _i32p,
-    ]
-    lib.smm_stream_pack_cf.restype = ctypes.c_int64
-    lib.smm_stream_pack_cf.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        _i64p, _i64p, _i64p, _i64p, _i32p, _i32p, _i64p,
-    ]
-    lib.smm_sort_perm.restype = None
-    lib.smm_sort_perm.argtypes = [ctypes.c_int64, _u64p, ctypes.c_int, _i64p]
-    lib.smm_stream_group.restype = ctypes.c_int64
-    lib.smm_stream_group.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, _i64p, _i64p, _i64p, _i64p, _i64p,
-        _i64p,
-    ]
-    lib.smm_stream_emit.restype = None
-    lib.smm_stream_emit.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        _i64p, _i64p, _i32p, _i32p, _i64p, _i64p,
-        ctypes.c_void_p, _i32p, _i64p,
-    ]
-    lib.smm_stream_level.restype = ctypes.c_int64
-    lib.smm_stream_level.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        _i64p, _i64p, _i64p, _i64p, _i64p,
-        _i64p, _i64p, _i64p, _i64p, _i64p,
-    ]
-    lib.smm_wsell_plan.restype = ctypes.c_int64
-    lib.smm_wsell_plan.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        _i64p, _i64p, _i64p, _i32p, _i64p, _i64p, _i64p,
-    ]
-    lib.smm_wsell_emit.restype = ctypes.c_int
-    lib.smm_wsell_emit.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        _i64p, _i64p, ctypes.c_void_p, _i64p, _i32p, _i64p, _i32p,
-        ctypes.c_void_p, _i32p,
     ]
 
 
@@ -285,239 +228,7 @@ def mtx_read_native(path: str, allow_general: bool):
     return int(rows.value), int(cols.value), r[:k], c[:k], v[:k]
 
 
-def wsell_color_native(job, t, lane, lsrc, sw, n_jobs: int):
-    """First-fit W-SELL slot-row colouring (smm_wsell_color), or None if
-    the native library is unavailable.  Returns an int32 row id per nnz
-    satisfying the layout constraints in formats/wsell.py — packed at
-    least as tightly as the NumPy rank+repair fallback."""
-    lib = _load()
-    if lib is None:
-        return None
-    nnz = job.shape[0]
-    row = np.empty(nnz, np.int32)
-    rc = lib.smm_wsell_color(
-        nnz, int(n_jobs),
-        np.ascontiguousarray(job, np.int64),
-        np.ascontiguousarray(t, np.int64),
-        np.ascontiguousarray(lane, np.int64),
-        np.ascontiguousarray(lsrc, np.int64),
-        np.ascontiguousarray(sw, np.int64),
-        row,
-    )
-    if rc < 0:
-        return None
-    return row
-
-
-def stream_pack_cf_native(group, sigma, lam, nd, wrows: int):
-    """Closed-form R-SELL stream-pass packing (smm_stream_pack_cf) —
-    the exact native equivalent of formats/rsell.py:_pack_pass — or
-    None if the native library is unavailable.  Returns (row_in_group,
-    out_lane, rows_per_group).  Raises ValueError on duplicate-flood
-    non-convergence (same contract as the NumPy packer)."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = group.shape[0]
-    n_groups = int(group[-1]) + 1 if n else 0
-    row = np.empty(n, np.int32)
-    lane = np.empty(n, np.int32)
-    group_rows = np.empty(max(n_groups, 1), np.int64)
-    rc = lib.smm_stream_pack_cf(
-        n, n_groups, int(wrows),
-        np.ascontiguousarray(group, np.int64),
-        np.ascontiguousarray(sigma, np.int64),
-        np.ascontiguousarray(lam, np.int64),
-        np.ascontiguousarray(nd, np.int64),
-        row, lane, group_rows,
-    )
-    if rc == -2:
-        raise ValueError("R-SELL packer did not converge (duplicate flood)")
-    if rc < 0:
-        return None
-    # int32 as produced: the consumer (smm_stream_emit) takes int32 row
-    # and lane planes, so widening here just paid two 12M-element
-    # astypes per level for nothing (NumPy promotes the mixed arithmetic
-    # in the fallback emit path fine)
-    return row, lane, group_rows[:n_groups]
-
-
 class _MtxNativeError(ValueError):
     def __init__(self, status: int, message: str):
         super().__init__(message)
         self.status = status
-
-
-def sort_perm_native(key: np.ndarray) -> Optional[np.ndarray]:
-    """Stable radix-sort permutation of an int64/uint64 key array
-    (smm_sort_perm), or None if the native library is unavailable.
-    Equivalent to ``np.argsort(key, kind="stable")`` for non-negative
-    keys, at a fraction of the cost at 10M+ elements."""
-    lib = _load()
-    if lib is None:
-        return None
-    key = np.ascontiguousarray(key)
-    if key.dtype == np.int64:
-        if key.size and int(key.max(initial=0)) < 0:
-            return None
-        key = key.view(np.uint64)
-    elif key.dtype != np.uint64:
-        return None
-    bits = int(key.max(initial=0)).bit_length() if key.size else 1
-    perm = np.empty(key.shape[0], np.int64)
-    lib.smm_sort_perm(key.shape[0], key, max(bits, 1), perm)
-    return perm
-
-
-def stream_group_native(wrows: int, bucket, pos):
-    """(group, sigma, lam, group_stack, n_groups) for one stream level
-    (smm_stream_group; inputs sorted by (bucket, pos)), or None."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = bucket.shape[0]
-    group = np.empty(n, np.int64)
-    sigma = np.empty(n, np.int64)
-    lam = np.empty(n, np.int64)
-    group_stack = np.empty(n, np.int64)
-    n_groups = lib.smm_stream_group(
-        n, int(wrows),
-        np.ascontiguousarray(bucket, np.int64),
-        np.ascontiguousarray(pos, np.int64),
-        group, sigma, lam, group_stack,
-    )
-    return group, sigma, lam, group_stack[:n_groups], int(n_groups)
-
-
-def stream_emit_native(
-    sw_bits: int, group, row_off, row_in_group, out_lane, lam, sigma,
-    vals_plane: np.ndarray, meta_plane: np.ndarray,
-) -> Optional[np.ndarray]:
-    """Scatter one stream level's planes in place (smm_stream_emit) and
-    return each element's new position, or None if unavailable.
-    ``vals_plane`` (f32/f64, zeroed) and ``meta_plane`` (int32, zeroed)
-    are written in place."""
-    lib = _load()
-    if lib is None:
-        return None
-    if vals_plane.dtype == np.float64:
-        dtype64 = 1
-    elif vals_plane.dtype == np.float32:
-        dtype64 = 0
-    else:
-        return None
-    n = group.shape[0]
-    out_pos = np.empty(n, np.int64)
-    assert vals_plane.flags["C_CONTIGUOUS"] and meta_plane.flags["C_CONTIGUOUS"]
-    lib.smm_stream_emit(
-        n, int(sw_bits), dtype64,
-        np.ascontiguousarray(group, np.int64),
-        np.ascontiguousarray(row_off, np.int64),
-        np.ascontiguousarray(row_in_group, np.int32),
-        np.ascontiguousarray(out_lane, np.int32),
-        np.ascontiguousarray(lam, np.int64),
-        np.ascontiguousarray(sigma, np.int64),
-        vals_plane.ctypes.data_as(ctypes.c_void_p),
-        meta_plane,
-        out_pos,
-    )
-    return out_pos
-
-
-def stream_level_native(
-    wrows: int, d: int, wt: int, d_next: int, wt_next: int,
-    pos_bits: int, key_bits: int,
-    prefix: np.ndarray, pos: np.ndarray, order: np.ndarray,
-    leaf: np.ndarray, slab_in_leaf: np.ndarray,
-):
-    """Fused routed-chain level reorder (smm_stream_level): updates
-    prefix <- prefix*d + (leaf/wt)%d, stable-sorts ALL five carried
-    arrays IN PLACE by (prefix, pos), and returns
-    (nd, group, sigma, lam, group_stack) for the sorted order — or None
-    if the native library is unavailable.  All five arrays must be
-    C-contiguous int64 (they are mutated)."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = prefix.shape[0]
-    for a in (prefix, pos, order, leaf, slab_in_leaf):
-        if a.dtype != np.int64 or not a.flags["C_CONTIGUOUS"]:
-            return None
-    nd = np.empty(n, np.int64)
-    group = np.empty(n, np.int64)
-    sigma = np.empty(n, np.int64)
-    lam = np.empty(n, np.int64)
-    group_stack = np.empty(n, np.int64)
-    n_groups = lib.smm_stream_level(
-        n, int(wrows), int(d), int(wt), int(d_next), int(wt_next),
-        int(pos_bits), int(key_bits),
-        prefix, pos, order, leaf, slab_in_leaf,
-        nd, group, sigma, lam, group_stack,
-    )
-    if n_groups < 0:
-        return None
-    return nd, group, sigma, lam, group_stack[:n_groups]
-
-
-def wsell_plan_native(r, c, n_rows: int, x_rows: int, window_f: int):
-    """Fused W-SELL layout plan (smm_wsell_plan): per-nnz (job, slot
-    row) plus per-job (8*K rows, window base, slab) — or None when the
-    native library is unavailable or the job key span is too large for
-    the dense map (caller falls back to the NumPy path)."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = r.shape[0]
-    job = np.empty(n, np.int64)
-    row = np.empty(n, np.int32)
-    job_rows = np.empty(n, np.int64)
-    job_base = np.empty(n, np.int64)
-    job_slab = np.empty(n, np.int64)
-    n_jobs = lib.smm_wsell_plan(
-        n, int(n_rows), int(x_rows), int(window_f),
-        np.ascontiguousarray(r, np.int64),
-        np.ascontiguousarray(c, np.int64),
-        job, row, job_rows, job_base, job_slab,
-    )
-    if n_jobs < 0:
-        return None
-    k = int(n_jobs)
-    return job, row, job_rows[:k], job_base[:k], job_slab[:k]
-
-
-def wsell_emit_native(
-    lsrc_shift: int, wrows: int, r, c, v: np.ndarray, job, row,
-    vreg_start_of_job, base_vreg,
-    vals_plane: np.ndarray, meta_plane: np.ndarray,
-) -> Optional[bool]:
-    """Scatter the W-SELL vals/meta planes in place (smm_wsell_emit).
-    Returns True on success, None if unavailable/unsupported dtype.
-    Raises AssertionError when a window sublane falls outside
-    [0, wrows) (parity with the NumPy path's invariant check)."""
-    lib = _load()
-    if lib is None:
-        return None
-    if v.dtype == np.float64 and vals_plane.dtype == np.float64:
-        dtype64 = 1
-    elif v.dtype == np.float32 and vals_plane.dtype == np.float32:
-        dtype64 = 0
-    else:
-        return None
-    assert vals_plane.flags["C_CONTIGUOUS"] and meta_plane.flags["C_CONTIGUOUS"]
-    rc = lib.smm_wsell_emit(
-        r.shape[0], int(lsrc_shift), int(wrows), dtype64,
-        np.ascontiguousarray(r, np.int64),
-        np.ascontiguousarray(c, np.int64),
-        np.ascontiguousarray(v).ctypes.data_as(ctypes.c_void_p),
-        np.ascontiguousarray(job, np.int64),
-        np.ascontiguousarray(row, np.int32),
-        np.ascontiguousarray(vreg_start_of_job, np.int64),
-        np.ascontiguousarray(base_vreg, np.int32),
-        vals_plane.ctypes.data_as(ctypes.c_void_p),
-        meta_plane,
-    )
-    if rc != 0:
-        raise AssertionError(
-            f"window base math violated sw in [0, {wrows})"
-        )
-    return True

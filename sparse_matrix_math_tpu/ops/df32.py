@@ -1,15 +1,13 @@
-"""Double-word f32 ("df32") arithmetic: emulated ~f64 on TPU hardware.
+"""Double-word f32 ("df32") arithmetic: ~f64 accuracy carried in f32 pairs.
 
-TPU v5e has no native float64 — the VPU computes IEEE float32 and the
-MXU bf16-with-f32-accumulate.  The reference library is templated over
-``double`` throughout (include/sparse_matrix_math.h:42 ``Vector<T>``,
-:2316 ``ConjugateGradient<T>``) and its accuracy contract is 1e-8
-residuals in f64 (test/include/test_common.h:30-38).  This module
-closes that gap ON the hardware: every value is carried as an unevaluated
-pair ``(hi, lo)`` of float32 with ``|lo| <= ulp(hi)/2``, giving an
-effective 48-bit significand (~1.1e-16 unit roundoff per operation with
-the accurate double-word algorithms below) — comfortably past the 1e-8
-bar.
+The reference library is templated over ``double`` throughout
+(include/sparse_matrix_math.h:42 ``Vector<T>``, :2316
+``ConjugateGradient<T>``) and its accuracy contract is 1e-8 residuals in
+f64 (test/include/test_common.h:30-38).  This module meets that contract
+with f32 storage: every value is carried as an unevaluated pair
+``(hi, lo)`` of float32 with ``|lo| <= ulp(hi)/2``, giving an effective
+48-bit significand (~1.1e-16 unit roundoff per operation with the
+accurate double-word algorithms below) — comfortably past the 1e-8 bar.
 
 The primitives are the classical error-free transforms (Dekker 1971,
 Knuth TAOCP 4.2.2, and the double-word algorithms analysed in
@@ -17,7 +15,7 @@ Joldes-Muller-Popescu 2017):
 
 * ``two_sum``      — branch-free exact a+b = s + e  (6 flops)
 * ``two_prod``     — exact a*b = p + e via Dekker splitting (no FMA
-  required; TPU/XLA exposes none)
+  required; XLA exposes none)
 * ``df_add/df_mul/df_div`` — accurate double-word ops (relative error
   ~2^-47 each)
 * ``df_dot/df_norm2``      — compensated reductions: elementwise
@@ -26,27 +24,20 @@ Joldes-Muller-Popescu 2017):
 * ``DfEllMatrix``  — double-word ELL SpMV: per-slot two_prod of the hi
   parts plus the f32 cross terms, accumulated in double-word
 
-Everything is ordinary jax.numpy on the VPU — jit/while_loop friendly,
-vectorised over lanes.  No Pallas needed: the working set per CG
-iteration is a handful of (n,)-vectors; the emulation costs ~40 VPU
-flops per nnz, which at ~7 nnz/row is still HBM-bandwidth bound.
+Everything is ordinary jax.numpy — jit/while_loop friendly and
+bandwidth-bound at ~7 nnz/row.
 
 Safety note: the error-free transforms require strict IEEE f32
 semantics — no reassociation, no mul+add contraction into FMA.  XLA
-never reassociates.  Contraction differs by backend: **XLA:TPU emits no
-FMA** (verified by HLO inspection and exactness probes — the chip's VPU
-computes plain f32 adds/muls), so on the target hardware the transforms
-are exact as written.  XLA:CPU's LLVM pipeline DOES contract: inside
-large fusions (a jitted CG body) it re-materialises a product per
-consumer and contracts it into an FMA there, silently replacing the
-value ``two_prod``/``two_sum`` subtract back out.  The measured effect
-on a 2304-row Poisson CG was a true-residual floor of 7.4e-6 instead
-of 8.1e-11 — and ``lax.optimization_barrier`` pinning did not stop it.
-The fix (``_via_f64``): on CPU, where native f64 exists, the EFT
+never reassociates, but LLVM-based backends DO contract: inside large
+fusions (a jitted CG body) a product is re-materialised per consumer
+and contracted into an FMA there, silently replacing the value
+``two_prod``/``two_sum`` subtract back out.  The measured effect on a
+2304-row Poisson CG on the CPU backend was a true-residual floor of
+7.4e-6 instead of 8.1e-11 — and ``lax.optimization_barrier`` pinning did
+not stop it.  The fix (``_via_f64``): with x64 enabled, the EFT
 primitives compute through ONE exact f64 op and re-split — bit-exact
-two_sum/two_prod with nothing to contract; on TPU the pure-f32
-sequences are kept and fusion stays free.  docs/DESIGN.md "f64 on
-hardware" records the probes on both backends.
+two_sum/two_prod with nothing to contract.
 """
 
 from __future__ import annotations
@@ -73,7 +64,6 @@ __all__ = [
     "DfEllMatrix",
     "DfDiaMatrix",
     "DfGridStencil",
-    "df_matvec_fn",
     "df_operator_from_host_csr",
 ]
 
@@ -81,21 +71,12 @@ _SPLIT = np.float32(4097.0)  # 2^12 + 1: Dekker split point for f32
 
 
 def _via_f64() -> bool:
-    """Trace-time choice of EFT implementation.
-
-    On TPU the Dekker/Knuth transforms below are exact as written (the
-    backend emits no FMA — probed, see module docstring), so the pure
-    f32 sequences are used.  On CPU, LLVM contracts mul+add pairs
-    INSIDE large fusions (a jitted CG body): the product an EFT
-    subtracts back out is silently replaced by an FMA in one consumer
-    copy, and the error word is garbage exactly when it matters
-    (measured: CG true-residual floor 7.4e-6 instead of 8.1e-11 on a
-    2304-row Poisson; ``optimization_barrier`` pinning did NOT stop
-    it).  CPU has native f64, so there the primitives route through it:
-    a single f64 op followed by an exact re-split is bit-identical to
-    the true error-free transform and has nothing to contract.
-    """
-    return jax.default_backend() != "tpu" and jax.config.jax_enable_x64
+    """Trace-time choice of EFT implementation: with x64 enabled, route
+    each primitive through a single f64 op followed by an exact
+    re-split, which is bit-identical to the true error-free transform
+    and has nothing for the compiler to contract into an FMA (see the
+    module docstring).  Without x64 the pure-f32 sequences are used."""
+    return bool(jax.config.jax_enable_x64)
 
 
 def _f64(x):
@@ -103,9 +84,14 @@ def _f64(x):
 
 
 def _resplit64(s64):
-    """Exact (hi, lo) f32 pair from an f64 holding ≤49 significand bits."""
-    s = s64.astype(jnp.float32)
-    return s, (s64 - s.astype(jnp.float64)).astype(jnp.float32)
+    """Exact (hi, lo) f32 pair from an f64 holding ≤49 significand bits.
+
+    The hi word is rounded with ``reduce_precision``, not an f32 round
+    trip: with excess precision allowed (XLA's default), the GPU
+    compiler removes an f64->f32->f64 conversion pair, which would make
+    the lo word zero."""
+    hi = jax.lax.reduce_precision(s64, exponent_bits=8, mantissa_bits=23)
+    return hi.astype(jnp.float32), (s64 - hi).astype(jnp.float32)
 
 
 def two_sum(a, b):
@@ -138,7 +124,7 @@ def _split(a):
 
 
 def two_prod(a, b):
-    """Exact a * b = p + e via Dekker splitting (no FMA on TPU/XLA)."""
+    """Exact a * b = p + e via Dekker splitting (no FMA needed)."""
     if _via_f64():
         # f32 * f32 is exact in f64 (24+24 <= 53 bits)
         return _resplit64(_f64(a) * _f64(b))
@@ -296,7 +282,7 @@ class DfEllMatrix:
     @classmethod
     def from_csr(cls, csr) -> "DfEllMatrix":
         """Build from a device CSRMatrix.  NOTE: the device arrays are
-        float32 on TPU, so the lo planes are zero — the operator is only
+        usually float32, so the lo planes are zero — the operator is only
         f32-accurate.  Use :meth:`from_host_csr` (or io.load_matrix_df)
         with the original f64 data for the full f64-parity chain."""
         return cls.from_host_csr(
@@ -310,11 +296,9 @@ class DfEllMatrix:
         """y = A @ x with x, y double-word vectors (reference rMult
         h:1458-1478, at f64 accuracy on f32 hardware).
 
-        NOTE: the per-slot ``jnp.take`` gather is the general-pattern
-        fallback and is slow on TPU (measured 187 ms for 5.2M nnz —
-        XLA lowers random gathers poorly).  Stencil matrices should use
-        :class:`DfDiaMatrix` (static shifted reads, no gather), which
-        :func:`df_operator_from_host_csr` selects automatically."""
+        Stencil matrices should use :class:`DfDiaMatrix` (static shifted
+        reads, no gather), which :func:`df_operator_from_host_csr`
+        selects automatically."""
         n_rows, _ = self.shape
         x_hi, x_lo = x
         rows_p, k = self.vals_hi.shape
@@ -337,8 +321,8 @@ class DfEllMatrix:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DfDiaMatrix:
-    """Double-word DIA (diagonal-storage) matrix: the TPU fast path for
-    stencil operators in emulated f64.
+    """Double-word DIA (diagonal-storage) matrix: the gather-free
+    operator for stencil matrices in double-word arithmetic.
 
     Same layout contract as :class:`~..formats.dia.DIAMatrix`
     (``diags[d, i]`` is the entry at ``(i, i + offsets[d])``, out-of-range
@@ -383,32 +367,9 @@ class DfDiaMatrix:
         )
 
     def rmult_df(self, x: Tuple) -> Tuple:
-        """y = A @ x, double-word in and out, gather-free.
-
-        On TPU with both x words VMEM-resident this runs as the padded
-        Pallas kernel (ops/pallas_spmv.py:dia_spmv_padded_df) — the XLA
-        formulation below pays a cross-lane relayout per unaligned
-        offset (measured 1.9x, docs/DESIGN.md §16), the kernel's
-        sublane-slice + lane-rotation window reads do not.
-
-        One-shot convenience: the padded layout is rebuilt per call.
-        Solver loops must hoist it via :func:`df_matvec_fn` (one layout
-        per solve, and a working XLA fallback when Mosaic refuses the
-        geometry)."""
-        n_rows, n_cols = self.shape
-        if not self.offsets:
-            z = jnp.zeros(n_rows, jnp.float32)
-            return z, z
-        if jax.default_backend() == "tpu" and n_rows == n_cols:
-            from .pallas_spmv import pad_dia_df
-
-            return _df_dia_pallas_mv(pad_dia_df(self))(x)
-        return self._rmult_df_xla(x)
-
-    def _rmult_df_xla(self, x: Tuple) -> Tuple:
-        """Pure-XLA shifted-slice formulation (every backend, every
-        geometry) — the fallback when Mosaic refuses the Pallas layout
-        and the only path on CPU."""
+        """y = A @ x, double-word in and out, gather-free: pad x once,
+        then every diagonal is a contiguous static slice accumulated in
+        double-word."""
         n_rows, n_cols = self.shape
         x_hi, x_lo = x
         if not self.offsets:
@@ -428,61 +389,6 @@ class DfDiaMatrix:
             e = e + (a_hi * wl + a_lo * wh)
             y = df_add(y, _fast_two_sum(p, e))
         return y
-
-
-def _df_dia_pallas_mv(p):
-    """Matvec closure over a prebuilt PaddedDfDia layout."""
-    from .pallas_spmv import (
-        _DF_RESIDENT_X_BYTES,
-        dia_spmv_padded_df,
-        dia_spmv_streamed_df,
-    )
-
-    # resident when BOTH x planes fit the scoped-vmem budget next to the
-    # diagonal blocks; windowed HBM DMA otherwise
-    spmv = (
-        dia_spmv_padded_df
-        if 8 * p.n_total <= _DF_RESIDENT_X_BYTES
-        else dia_spmv_streamed_df
-    )
-
-    def mv(x):
-        yh, yl = spmv(p, p.to_padded(x[0]), p.to_padded(x[1]))
-        return p.from_padded(yh), p.from_padded(yl)
-
-    return mv
-
-
-def df_matvec_fn(a, use_pallas: bool = True):
-    """Hoisted double-word matvec: ``df_matvec_fn(a)(x_df) -> y_df``.
-
-    Call this ONCE per solve (outside any ``while_loop`` body) — for a
-    ``DfDiaMatrix`` on TPU it builds the padded Pallas layout a single
-    time, instead of re-laying the diagonals inside every loop-body
-    matvec and hoping XLA LICM hoists it.  ``use_pallas=False`` forces
-    the XLA shifted-slice formulation — the retry path solver front
-    doors take when Mosaic refuses a geometry (mirroring
-    ops/spmv.py:_warn_pallas_fallback), which would otherwise hard-fail
-    every df64 solve on that pattern.
-    """
-    if isinstance(a, DfGridStencil):
-        return a.rmult_df  # pure XLA, nothing to hoist or fall back from
-    if isinstance(a, DfDiaMatrix):
-        n_rows, n_cols = a.shape
-        if (
-            use_pallas
-            and a.offsets
-            and jax.default_backend() == "tpu"
-            and n_rows == n_cols
-        ):
-            from .pallas_spmv import pad_dia_df
-
-            try:
-                return _df_dia_pallas_mv(pad_dia_df(a))
-            except Exception:  # geometry refusal at layout build time
-                pass
-        return a._rmult_df_xla
-    return a.rmult_df
 
 
 @jax.tree_util.register_dataclass

@@ -1,12 +1,11 @@
 """SpMV kernel family: y = op(lhs, A @ x).
 
-TPU-native re-design of the reference's ``rMultOp`` family
+Re-design of the reference's ``rMultOp`` family
 (include/sparse_matrix_math.h:1458-1515): ``rmult`` (y = A@x),
 ``rmult_add`` (y = lhs + A@x), ``rmult_sub`` (y = lhs - A@x).  The
 reference walks ragged CSR rows with a scalar FMA loop parallelised over
 row ranges by TBB (h:1493-1497); here each format gets a vectorised XLA
-formulation, and the hot path dispatches to Pallas kernels
-(ops/pallas_spmv.py) on TPU:
+formulation:
 
 * CSR — gather ``x`` by column index, multiply, segment-sum by row.
   Empty rows produce 0 contributions exactly as the reference's
@@ -30,62 +29,9 @@ from ..formats.dia import DIAMatrix
 from ..formats.ell import ELLMatrix
 from ..formats.hyb import HYBMatrix
 from ..formats.reorder import ReorderedMatrix
-from ..formats.rsell import RoutedMatrix
 from ..formats.stencil import GridStencilMatrix
-from ..formats.wsell import WSellMatrix
 
 __all__ = ["rmult", "rmult_add", "rmult_sub", "matvec_fn"]
-
-_warned_fallback = False
-
-
-def _warn_pallas_fallback(exc: Exception) -> None:
-    """Signal (once per process) that the Pallas fast path degraded to the
-    XLA formulation — silent fallback would mask kernel regressions."""
-    global _warned_fallback
-    if not _warned_fallback:
-        _warned_fallback = True
-        import warnings
-
-        warnings.warn(
-            f"Pallas DIA kernel unavailable, using XLA fallback: {exc!r}",
-            RuntimeWarning,
-            stacklevel=3,
-        )
-
-
-# PaddedDIA layouts are pure functions of the (constant) diagonal arrays;
-# rebuilding one per SpMV call would cost O(ndiags * n) extra bandwidth.
-# Bounded id-keyed caches.  Each entry RETAINS the keyed source array:
-# without that reference, a GC'd array's reused id() would return a stale
-# (wrong-matrix!) cached value.  Tracers are never cached (trace-local).
-_PAD_CACHE_MAX = 8
-
-
-def _cache_lookup(cache: dict, src, build):
-    """id-keyed bounded cache holding (source_array, derived) pairs; the
-    identity check guards against id reuse after garbage collection."""
-    key = id(src)
-    hit = cache.get(key)
-    if hit is not None and hit[0] is src:
-        return hit[1]
-    derived = build()
-    if len(cache) >= _PAD_CACHE_MAX:
-        cache.pop(next(iter(cache)))
-    cache[key] = (src, derived)
-    return derived
-
-
-_pad_cache: dict = {}
-
-
-def _padded_dia_cached(a: DIAMatrix):
-    from . import pallas_spmv
-
-    if isinstance(a.diags, jax.core.Tracer):
-        return pallas_spmv.pad_dia(a)
-    return _cache_lookup(_pad_cache, a.diags, lambda: pallas_spmv.pad_dia(a))
-
 
 # -- per-format y = A @ x ----------------------------------------------------
 
@@ -100,17 +46,11 @@ def rmult(a, x: jnp.ndarray) -> jnp.ndarray:
     for callables (the LinearOperator escape hatch the reference lacks).
     """
     if hasattr(a, "ndim") and a.ndim == 2:
-        return a @ x
+        # pinned: the default f32 matmul precision may be TF32 on GPUs
+        return jnp.matmul(a, x, precision=jax.lax.Precision.HIGHEST)
     if callable(a):
         return a(x)
     raise TypeError(f"unsupported matrix type: {type(a).__name__}")
-
-
-# On TPU, scatter-add (segment_sum) and gathers are slow; below this
-# element count a densified matmul on the MXU wins outright (a 2048^2 f32
-# dense matrix is 16 MB — VMEM-class; the reference test suite's matrices
-# are all far below it).
-_DENSE_FALLBACK_ELEMS = 2048 * 2048
 
 
 def _bcast(v: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
@@ -122,27 +62,10 @@ def _bcast(v: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
 
 @rmult.register
 def _rmult_csr(a: CSRMatrix, x: jnp.ndarray) -> jnp.ndarray:
-    n_rows, n_cols = a.shape
-    if (
-        jax.default_backend() == "tpu"
-        and n_rows * n_cols <= _DENSE_FALLBACK_ELEMS
-    ):
-        # densify once (cached eagerly; hoisted as loop-invariant under
-        # jit) and ride the MXU instead of the slow TPU scatter path
-        return _dense_csr_cached(a) @ x
     gathered = _bcast(a.data, x) * jnp.take(x, a.indices, axis=0)
     return jax.ops.segment_sum(
         gathered, a.row_ids, num_segments=a.shape[0], indices_are_sorted=True
     )
-
-
-_dense_cache: dict = {}
-
-
-def _dense_csr_cached(a: CSRMatrix) -> jnp.ndarray:
-    if isinstance(a.data, jax.core.Tracer):
-        return a.to_dense()
-    return _cache_lookup(_dense_cache, a.data, a.to_dense)
 
 
 @rmult.register
@@ -162,42 +85,19 @@ def _rmult_ell(a: ELLMatrix, x: jnp.ndarray) -> jnp.ndarray:
 
 
 @rmult.register
-def _rmult_dia(a: DIAMatrix, x: jnp.ndarray) -> jnp.ndarray:
+def dia_rmult_xla(a: DIAMatrix, x: jnp.ndarray) -> jnp.ndarray:
+    """The shifted-slice DIA SpMV.
+
+    Static-offset shifted reads: pad x once, then every diagonal is a
+    contiguous static slice (no gather at all) — XLA fuses the whole
+    thing into one elementwise pass over contiguous memory, bound by
+    memory bandwidth.  Out-of-range slots read padding zeros, and DIA
+    construction guarantees their stored values are 0 (formats/dia.py),
+    so no masking is needed."""
     if not a.offsets:  # no stored diagonals: A == 0
         return jnp.zeros(
             (a.shape[0],) + x.shape[1:], dtype=jnp.result_type(a.dtype, x.dtype)
         )
-    # Hot path on TPU: the Pallas stencil kernel (x VMEM-resident, read
-    # once — ops/pallas_spmv.py) whenever x fits in VMEM.  Falls back to
-    # the XLA formulation below on other backends / larger n / any
-    # trace-time kernel incompatibility.  (Pallas paths are single-vector;
-    # multi-column SpMM uses the XLA formulation.)
-    if x.ndim == 1 and jax.default_backend() == "tpu":
-        from . import pallas_spmv
-
-        try:
-            if pallas_spmv.fits_in_vmem(a.shape[1], a.dtype):
-                return pallas_spmv.dia_spmv(a, x)
-            # large n: x stays in HBM, windows stream through VMEM
-            p = _padded_dia_cached(a)
-            return p.from_padded(pallas_spmv.dia_spmv_streamed(p, p.to_padded(x)))
-        except Exception as e:
-            _warn_pallas_fallback(e)
-    return dia_rmult_xla(a, x)
-
-
-def dia_rmult_xla(a: DIAMatrix, x: jnp.ndarray) -> jnp.ndarray:
-    """The XLA shifted-slice DIA SpMV — public for callers that must
-    avoid the Pallas path entirely (e.g. mixed_cg's fallback after a
-    Mosaic compile refusal, where a per-call retry inside an outer jit
-    would refuse again at that jit's own compile).
-
-    Static-offset shifted reads: pad x once, then every diagonal is a
-    contiguous static slice (no gather at all) — XLA fuses the whole
-    thing into elementwise FMAs over contiguous memory, which on TPU is
-    pure VPU work at HBM bandwidth.  Out-of-range slots read padding
-    zeros, and DIA construction guarantees their stored values are 0
-    (formats/dia.py), so no masking is needed."""
     n_rows, n_cols = a.shape
     lpad = max(-min(a.offsets), 0)
     rpad = max(max(a.offsets) + n_rows - n_cols, 0)
@@ -209,48 +109,6 @@ def dia_rmult_xla(a: DIAMatrix, x: jnp.ndarray) -> jnp.ndarray:
         window = jax.lax.slice_in_dim(xp, lpad + off, lpad + off + n_rows, axis=0)
         y = y + _bcast(a.diags[d], x) * window
     return y
-
-
-@rmult.register
-def _rmult_wsell(a: WSellMatrix, x: jnp.ndarray) -> jnp.ndarray:
-    # the general-pattern Pallas kernels (ops/pallas_wsell.py); 2-D x
-    # runs the SpMM kernel, which streams the slot planes ONCE for all
-    # columns instead of once per column
-    from .pallas_wsell import _VMEM_TABLE_BYTES, wsell_spmm, wsell_spmv
-
-    interpret = jax.default_backend() != "tpu"
-    if x.ndim == 1:
-        return wsell_spmv(a, x, interpret=interpret)
-    if a.x_rows * 128 * x.dtype.itemsize > _VMEM_TABLE_BYTES:
-        # each SpMM x table must be VMEM-resident; past the budget run
-        # per-column SpMVs, which stream the table from HBM instead
-        cols = [wsell_spmv(a, x[:, j], interpret=interpret)
-                for j in range(x.shape[1])]
-        return jnp.stack(cols, axis=1)
-    return wsell_spmm(a, x, interpret=interpret)
-
-
-@rmult.register
-def _rmult_routed(a: RoutedMatrix, x: jnp.ndarray) -> jnp.ndarray:
-    # zero-locality fast path (formats/rsell.py): run the routing chain
-    # (each pass one Pallas stream gather), then the final F-window
-    # W-SELL multiply-accumulate over the routed stream.  Multi-column x
-    # falls back to per-column chains (routing planes are re-streamed;
-    # acceptable because the chain is compute-bound, not A-stream-bound).
-    from .pallas_rsell import stream_gather
-    from .pallas_wsell import wsell_spmv
-
-    interpret = jax.default_backend() != "tpu"
-    if x.ndim != 1:
-        cols = [rmult(a, x[:, j]) for j in range(x.shape[1])]
-        return jnp.stack(cols, axis=1)
-    t = x
-    for p in a.passes:
-        t = stream_gather(
-            p.base, p.meta, p.vals, t,
-            x_rows=p.x_rows, window_f=p.window_f, interpret=interpret,
-        )
-    return wsell_spmv(a.final, t, interpret=interpret)
 
 
 @rmult.register
@@ -266,9 +124,9 @@ def _rmult_reordered(a: ReorderedMatrix, x: jnp.ndarray) -> jnp.ndarray:
 def _rmult_hyb(a: HYBMatrix, x: jnp.ndarray) -> jnp.ndarray:
     # dominant diagonals at stencil speed + sparse remainder
     if a.dia is not None and a.rest is not None:
-        return _rmult_dia(a.dia, x) + _rmult_csr(a.rest, x)
+        return dia_rmult_xla(a.dia, x) + _rmult_csr(a.rest, x)
     if a.dia is not None:
-        return _rmult_dia(a.dia, x)
+        return dia_rmult_xla(a.dia, x)
     if a.rest is not None:
         return _rmult_csr(a.rest, x)
     return jnp.zeros((a.shape[0],), dtype=jnp.result_type(a.dtype, x.dtype))
@@ -294,8 +152,8 @@ def matvec_fn(a):
     arbitrary callable (the LinearOperator escape hatch the reference
     lacks)."""
     if isinstance(
-        a, (CSRMatrix, ELLMatrix, DIAMatrix, HYBMatrix, WSellMatrix,
-            ReorderedMatrix, RoutedMatrix, GridStencilMatrix)
+        a, (CSRMatrix, ELLMatrix, DIAMatrix, HYBMatrix, ReorderedMatrix,
+            GridStencilMatrix)
     ):
         return lambda x: rmult(a, x)
     if callable(a):
@@ -309,8 +167,8 @@ def as_operator(a):
     bare callables are wrapped in ``jax.tree_util.Partial`` (so solver
     compilations are cached per matrix *structure*, not per call)."""
     if isinstance(
-        a, (CSRMatrix, ELLMatrix, DIAMatrix, HYBMatrix, WSellMatrix,
-            ReorderedMatrix, RoutedMatrix, GridStencilMatrix)
+        a, (CSRMatrix, ELLMatrix, DIAMatrix, HYBMatrix, ReorderedMatrix,
+            GridStencilMatrix)
     ):
         return a
     if hasattr(a, "ndim") and a.ndim == 2:

@@ -1,10 +1,10 @@
 """Dense-vector primitives: dot, norms, axpy.
 
-TPU-native equivalents of the reference ``Vector<T>`` operations
+Equivalents of the reference ``Vector<T>`` operations
 (include/sparse_matrix_math.h:42-381).  The reference's dot product uses
 a TBB ``parallel_deterministic_reduce`` with grain 8192 for reproducible
-sums (h:305-328); on TPU, XLA reductions have a fixed order per compiled
-topology, so results are deterministic run-to-run by construction —
+sums (h:305-328); XLA reductions have a fixed order per compiled
+program, so results are deterministic run-to-run by construction —
 determinism across *different* meshes is covered by the distributed layer
 (parallel/).
 
@@ -15,6 +15,7 @@ alias exists only for API-discovery parity.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -30,7 +31,9 @@ __all__ = [
 
 def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Inner product (reference operator*, h:305-328)."""
-    return jnp.dot(a, b, preferred_element_type=a.dtype)
+    return jnp.dot(
+        a, b, precision=jax.lax.Precision.HIGHEST, preferred_element_type=a.dtype
+    )
 
 
 def norm2_squared(a: jnp.ndarray) -> jnp.ndarray:

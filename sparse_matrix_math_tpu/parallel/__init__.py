@@ -20,18 +20,6 @@ from .dist_multigrid import (
     dist_mg_vcycle,
     distribute_multigrid,
 )
-from .dist_rsell import (
-    DistRouted,
-    dist_routed_solve,
-    dist_routed_spmv,
-    distribute_routed,
-)
-from .dist_wsell import (
-    DistWSell,
-    dist_wsell_solve,
-    dist_wsell_spmv,
-    distribute_wsell,
-)
 from .dist import (
     DistCSR,
     DistPreconditioner,
@@ -59,14 +47,6 @@ __all__ = [
     "dist_mg_solve",
     "dist_mg_vcycle",
     "distribute_multigrid",
-    "DistRouted",
-    "dist_routed_solve",
-    "dist_routed_spmv",
-    "distribute_routed",
-    "DistWSell",
-    "dist_wsell_solve",
-    "dist_wsell_spmv",
-    "distribute_wsell",
     "dist_dia_solve",
     "dist_dia_spmv",
     "DistStencil",

@@ -3,7 +3,7 @@
 The reference's entire parallelism story is TBB ``parallel_for`` over row
 ranges of the CSR matrix (reference include/sparse_matrix_math.h:1493-1497)
 and a deterministic parallel reduction for dot products (h:305-328).  The
-TPU-native scaling design (SURVEY §2.3, §7):
+Scaling design (SURVEY §2.3, §7):
 
 * the matrix row dimension is laid out across a 1-D device mesh — each
   device owns a contiguous block of rows as padded ``(P, L)`` CSR-like
@@ -65,7 +65,7 @@ __all__ = [
     "distribute_preconditioner",
 ]
 
-_LANE = 128  # pad per-shard nnz to lane multiples for clean VMEM tiling
+_LANE = 128  # pad per-shard nnz to a multiple of 128 (aligned tiles)
 
 
 # -- distributed containers ---------------------------------------------------
@@ -359,7 +359,7 @@ class DistPreconditioner:
 
     ``kind`` is one of none/jacobi/sgs/ilu0/ic0; triangular applies run as
     Jacobi sweeps (each sweep = one distributed strict-SpMV), the scalable
-    TPU strategy from precond/trisolve.py.  Array ranks must match
+    strategy from precond/trisolve.py.  Array ranks must match
     ``_PRE_LAYOUT[kind]`` (checked at construction).
     """
 
@@ -383,17 +383,23 @@ def _distribute_triangular(
     """Lay a TriangularMatrix's strict part into the dist row-block format
     (same exchange mode as the matrix it preconditions — the factor's
     pattern is a subset of A's, so halo feasibility carries over)."""
+    if not isinstance(tri.strict, CSRMatrix):
+        raise TypeError(
+            "distributed triangular sweeps need a factor built from CSR, "
+            f"not one whose strict part is {type(tri.strict).__name__}"
+        )
+    csr = tri.strict
     n = tri.n
     block = dist.block_rows
     n_dev = mesh.shape[dist.axis]
     v, c, lr, bv, bc, blr, _ = _pack_row_blocks(
-        np.asarray(tri.row_ids, dtype=np.int64),
-        np.asarray(tri.indices, dtype=np.int64),
-        np.asarray(tri.data),
+        np.asarray(csr.row_ids, dtype=np.int64),
+        np.asarray(csr.indices, dtype=np.int64),
+        np.asarray(csr.data),
         n_dev=n_dev, block=block, mode=dist.mode,
     )
 
-    diag = np.ones(dist.padded_rows, dtype=np.asarray(tri.data).dtype)
+    diag = np.ones(dist.padded_rows, dtype=np.asarray(csr.data).dtype)
     diag[:n] = np.asarray(tri.diag)
 
     put = lambda a: put_sharded(a, mesh, P(dist.axis, None))  # noqa: E731
@@ -638,7 +644,19 @@ def dist_solve(
 
     The solution vector in the result is the *sharded padded* x — use
     :func:`collect` to bring it back to a host array of logical length.
+
+    A :class:`~.dist_stencil.DistStencil` operator runs the matrix-free
+    stencil path (:func:`~.dist_stencil.dist_stencil_solve`).
     """
+    from .dist_stencil import DistStencil, dist_stencil_solve
+
+    if isinstance(a, DistStencil):
+        if preconditioner is not None:
+            raise ValueError("the distributed stencil path is unpreconditioned")
+        return dist_stencil_solve(
+            a, b, x0, max_iterations, epsilon, solver=solver, mesh=mesh,
+            record_residuals=record_residuals,
+        )
     if solver not in _CORES:
         raise ValueError(f"unknown solver {solver!r}; options: {sorted(_CORES)}")
     mesh = resolve_mesh(
@@ -736,9 +754,7 @@ def _dist_solve_jit(
         if solver == "cg_pipelined":
 
             def dot2(u1, v1, u2, v2):
-                parts = jnp.stack(
-                    [jnp.vdot(u1, v1), jnp.vdot(u2, v2)]
-                )
+                parts = jnp.stack([_plain_dot(u1, v1), _plain_dot(u2, v2)])
                 both = jax.lax.psum(parts, axis)  # ONE collective
                 return both[0], both[1]
 
@@ -757,7 +773,10 @@ def _dist_solve_jit(
                 # (m+1, n_local) @ (n_local,) is a shard-local partial
                 # of the global panel contraction — ONE psum completes
                 # all m+1 Arnoldi dots of a step together
-                return jax.lax.psum(V @ w, axis)
+                return jax.lax.psum(
+                    jnp.matmul(V, w, precision=jax.lax.Precision.HIGHEST),
+                    axis,
+                )
 
             return gmres_core(
                 matvec, apply_, dotfn, paneldot, b_local, x0_local, eps,

@@ -1,10 +1,9 @@
-"""Distributed DIA (stencil) matrices — the multi-chip fast path.
+"""Distributed DIA (stencil) matrices — the multi-device fast path.
 
-Round 1 distributed only CSR (parallel/dist.py): the gather+segment-sum
-local kernel.  But the single-chip performance story is the DIA/padded
-Pallas stencil kernel (ops/pallas_spmv.py) — a pod run of the flagship
-Poisson system must not fall off it.  This module row-partitions a
-DIAMatrix so the stencil SpMV runs INSIDE ``shard_map``:
+parallel/dist.py distributes CSR with a gather+segment-sum local kernel;
+a banded system should keep the gather-free shifted-slice SpMV on a mesh
+too.  This module row-partitions a DIAMatrix so the stencil SpMV runs
+INSIDE ``shard_map``:
 
 * each shard owns a contiguous row block of every diagonal
   (``diags`` sharded on the row axis);
@@ -22,8 +21,7 @@ DIAMatrix so the stencil SpMV runs INSIDE ``shard_map``:
 
 Collective volume per SpMV: 2 ppermutes x B elements (send left + send
 right) per shard — independent of device count — vs. the allgather
-mode's (P-1) x B.  Per CG iteration add 2 psum latencies (dots); the
-weak-scaling model is in docs/BENCH_NOTES.md.
+mode's (P-1) x B.  Per CG iteration add 2 psum latencies (dots).
 """
 
 from __future__ import annotations

@@ -1,12 +1,11 @@
 """Distributed geometric multigrid — the operator-aware solver on a mesh.
 
-Single-chip multigrid (solvers/multigrid.py) is the measured wall-clock
-winner at bench scale (PCG+V-cycle 3.5x plain CG); this module runs the
-SAME Galerkin tensor-product hierarchy inside ``shard_map`` so the
-flagship solver scales over ICI like the SpMV fast paths do
-(parallel/dist_dia.py).  The reference has no multigrid and no
+Single-device multigrid (solvers/multigrid.py) solves the Poisson
+class in O(10) iterations; this module runs the SAME Galerkin
+tensor-product hierarchy inside ``shard_map`` so that solver scales
+over a mesh like the SpMV fast paths do (parallel/dist_dia.py).  The reference has no multigrid and no
 distribution at all (its scaling mechanism is TBB row-parallel SpMV,
-include/sparse_matrix_math.h:1493-1497); this is the TPU-native
+include/sparse_matrix_math.h:1493-1497); this is the native
 composition of both.
 
 Layout: grid vectors are sharded along axis 0 (the outermost grid axis —
@@ -341,7 +340,9 @@ def _vcycle_dist(lm: _LocalMG, b, lvl: int, axis: str):
 
 def _psum_vdot(axis: str):
     def dotfn(u, v):
-        return jax.lax.psum(jnp.vdot(u, v), axis)
+        return jax.lax.psum(
+            jnp.vdot(u, v, precision=jax.lax.Precision.HIGHEST), axis
+        )
 
     return dotfn
 

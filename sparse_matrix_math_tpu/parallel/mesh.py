@@ -2,7 +2,7 @@
 
 The reference's only parallelism is TBB shared-memory threading over
 matrix rows (reference include/sparse_matrix_math.h:1493-1497); the
-TPU-native scaling axis is the same row dimension, laid out over a 1-D
+The scaling axis is the same row dimension, laid out over a 1-D
 ``jax.sharding.Mesh`` (SURVEY §2.3).  All collectives (psum for dots,
 all_gather for the multiplicand halo) ride ICI along this axis — and,
 once :func:`init_distributed` has joined multiple processes, DCN across
@@ -52,14 +52,14 @@ def init_distributed(
 
     Call once per process before any other JAX use.  With no arguments
     jax.distributed.initialize picks everything up from the cluster
-    environment (TPU pods auto-detect; otherwise the standard
+    environment (managed clusters auto-detect; otherwise the standard
     JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env
     vars).  After it returns, ``jax.devices()`` is the GLOBAL device
     list and :func:`make_mesh` builds process-spanning meshes.
 
     ``simulate_cpu_devices=k`` pins the CPU backend with ``k`` local
     virtual devices and gloo cross-process collectives — a laptop/CI
-    simulation of an N-host TPU job (tests/test_multiprocess.py drives a
+    simulation of an N-host job (tests/test_multiprocess.py drives a
     2-process x 4-device solve through exactly this path).
     """
     if simulate_cpu_devices is not None:

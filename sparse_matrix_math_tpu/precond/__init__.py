@@ -9,6 +9,4 @@ from .preconditioners import (
     get_preconditioner,
 )
 from .cheby_poly import ChebyshevPreconditioner
-from .padded_sgs import PaddedSGS
-from .padded_tri import PaddedTriPair
 from .trisolve import TriangularMatrix, triangular_from_csr_arrays

@@ -5,7 +5,7 @@ The reference computes these with in-place CSR loops
 the latter broken/unfinished: ``apply`` never defined, error checks
 inverted, SURVEY §2.1 #14).  Factorisation is an inherently sequential,
 pattern-driven computation, so it stays on the host (NumPy) — the
-*apply* is what runs on TPU every iteration (trisolve.py).  A C++
+*apply* is what runs on the device every iteration (trisolve.py).  A C++
 fast path for large matrices lives in native/ (same algorithm).
 
 Both raise informative errors instead of the reference's failure modes
@@ -170,7 +170,7 @@ def ilu0_factorize_host(
     ``FactorizationError`` — a data-dependent NEAR-zero pivot yields a
     factor with huge entries that is useless as a preconditioner.
     ``ILU0Preconditioner.from_matrix`` escalates through diagonal
-    shifts on that error (round 5, VERDICT r4 #6).
+    shifts on that error.
     """
     data = np.asarray(data, dtype=np.float64)
     indices = np.asarray(indices, dtype=np.int64)

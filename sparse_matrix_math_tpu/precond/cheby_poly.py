@@ -1,12 +1,10 @@
-"""Chebyshev polynomial preconditioner — the launch-light TPU choice.
+"""Chebyshev polynomial preconditioner — the fully parallel choice.
 
 The reference's preconditioners are triangular-substitution based (SGS
-h:1672-1711, IC0 h:1802-1837) — inherently sequential applies.  On TPU
-the apply cost is dominated not by FLOPs but by per-kernel staging
-(every Pallas call re-stages its VMEM working set), so a preconditioner
-whose apply is k APPLICATIONS OF A ITSELF — the one operator whose
-kernel is already optimal — wins on wall-clock: this is classical
-Chebyshev polynomial preconditioning (Saad, Iterative Methods §12.3):
+h:1672-1711, IC0 h:1802-1837) — inherently sequential applies.  A
+preconditioner whose apply is k APPLICATIONS OF A ITSELF — the one
+operator whose kernel is already tuned — needs no triangular solve at
+all: this is classical Chebyshev polynomial preconditioning (Saad, Iterative Methods §12.3):
 
     M^{-1} r  =  p_k(A) r  ~=  A^{-1} r   on the spectrum [lmin, lmax]
 
@@ -18,8 +16,9 @@ bounds come from :func:`solvers.chebyshev.lanczos_extremal` with the
 same sign-aware widening the solver uses.
 
 Composability: ``apply`` is built from the same matvec the solver uses,
-so the padded-DIA fast path can run the whole preconditioned iteration
-in the padded layout with zero extra machinery (solvers/_padded.py).
+so the grid-stencil fast path can run the whole preconditioned
+iteration in the grid layout with zero extra machinery
+(solvers/_stencil.py).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Preconditioners: Identity, Jacobi, Symmetric Gauss-Seidel, ILU(0), IC(0).
 
-TPU-native re-design of the reference's nested preconditioner classes
+Re-design of the reference's nested preconditioner classes
 (include/sparse_matrix_math.h:1165-1235 + impls :1653-1928).  Each is an
 immutable pytree with ``apply(rhs) -> x`` solving ``M x = rhs``; they
 cross ``jax.jit`` boundaries as arguments, so solver compilations cache
@@ -10,10 +10,12 @@ Parity + deliberate improvements (SURVEY §7):
 
 * Identity   — no-op tag type (reference IDPreconditioner, h:1165-1170).
 * Jacobi     — diagonal scaling; absent in the reference but the standard
-  cheap TPU option (BASELINE.json allows "diagonal/SSOR-style").
+  cheap parallel option (BASELINE.json allows "diagonal/SSOR-style").
 * SGS        — M = (D+L) D^{-1} (D+U); apply = forward substitution on
   (D+L) then the (I + D^{-1}U) backward sweep (h:1660-1711).  Stateless
-  w.r.t. values (reads the matrix), zero factorisation cost.
+  w.r.t. values (reads the matrix), zero factorisation cost.  Built from
+  CSR (``from_matrix``) or from DIA (``from_dia``: the strict triangles
+  stay DIA matrices, so every Jacobi sweep is a shifted-slice SpMV).
 * ILU0       — COMPLETE implementation (the reference's is unfinished:
   apply declared but never defined, h:1199, inverted error checks,
   h:1743-1780).  apply = unit-lower forward solve then upper solve.
@@ -36,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..formats.csr import CSRMatrix
+from ..formats.dia import DIAMatrix
 from ._factorize import (
     FactorizationError,
     ic0_factorize_host,
@@ -120,7 +123,6 @@ class SGSPreconditioner:
     @classmethod
     def from_matrix(
         cls, a: CSRMatrix, *, method: str = "auto", sweeps="exact",
-        strict_layout: str = "auto",
     ) -> "SGSPreconditioner":
         diag, (ld, li, lr), (ud, ui, ur) = _host_split(a)
         if np.any(np.abs(diag) < _SGS_MIN_DIAG):
@@ -131,13 +133,56 @@ class SGSPreconditioner:
         n = a.shape[0]
         fwd = _strict_to_triangular(
             ld, li, lr, diag, n, lower=True, method=method, sweeps=sweeps,
-            strict_layout=strict_layout,
         )
         bwd = _strict_to_triangular(
             ud, ui, ur, diag, n, lower=False, method=method, sweeps=sweeps,
-            strict_layout=strict_layout,
         )
         return cls(fwd=fwd, bwd=bwd, diag=jnp.asarray(diag))
+
+    @classmethod
+    def from_dia(cls, a: DIAMatrix, *, sweeps: int = 4) -> "SGSPreconditioner":
+        """SGS whose strict triangles are the DIA matrix's own lower and
+        upper diagonals, each triangular solve ``sweeps`` Jacobi sweeps
+        (precond/trisolve.py) — the same arithmetic as ``from_matrix``
+        on the CSR form with ``method="jacobi"``.
+
+        A truncated sweep count is a fixed linear operator, so it is a
+        legitimate preconditioner M~ ~ (D+L) D^{-1} (D+U); for
+        constant-diagonal SPD stencils it is symmetric positive definite
+        as well (M~^{-1} = P_k(L^T/d) P_k(L/d)/d), so it is PCG-safe on
+        the Poisson systems.  Requires a stored main diagonal with
+        ``|d_i| >= 1e-5`` on every row (h:1690-1693).
+        """
+        if int(sweeps) < 1:
+            raise ValueError("sweeps must be >= 1")
+        offsets = a.offsets
+        if 0 not in offsets:
+            raise FactorizationError("SGS requires a stored main diagonal")
+        n = a.shape[0]
+        diag = np.asarray(a.diags[offsets.index(0)])[:n]
+        if np.any(np.abs(diag) < _SGS_MIN_DIAG):
+            raise FactorizationError(
+                f"SGS requires |diagonal| >= {_SGS_MIN_DIAG} on every row"
+            )
+        dvec = jnp.asarray(diag)
+
+        def triangle(lower: bool) -> TriangularMatrix:
+            keep = [i for i, off in enumerate(offsets)
+                    if (off < 0 if lower else off > 0)]
+            strict = None
+            if keep:
+                strict = DIAMatrix(
+                    diags=a.diags[jnp.asarray(keep)],
+                    offsets=tuple(offsets[i] for i in keep),
+                    shape=a.shape,
+                    nnz=a.nnz,  # metadata only
+                )
+            return TriangularMatrix(
+                strict=strict, diag=dvec, dense=None, n=int(n),
+                lower=lower, depth=-1, method="jacobi", sweeps=int(sweeps),
+            )
+
+        return cls(fwd=triangle(True), bwd=triangle(False), diag=dvec)
 
 
 @jax.tree_util.register_dataclass
@@ -167,13 +212,13 @@ class ILU0Preconditioner:
     @classmethod
     def from_matrix(
         cls, a: CSRMatrix, *, method: str = "auto", sweeps="exact",
-        strict_layout: str = "auto", pivot_shift: str = "auto",
+        pivot_shift: str = "auto",
     ) -> "ILU0Preconditioner":
         """``pivot_shift='auto'`` (default): on a (near-)zero pivot,
         retry the factorisation on ``A + alpha*I`` with ``alpha``
         escalating from 1e-3 to ~100x the mean |diagonal| — a
-        data-dependent zero pivot (e.g. jittered convection-diffusion,
-        VERDICT r4 #6) then degrades to a shifted-but-usable
+        data-dependent zero pivot (e.g. jittered convection-diffusion)
+        then degrades to a shifted-but-usable
         preconditioner instead of an error.  ``pivot_shift='never'``
         restores the raise-on-zero-pivot behavior.  The applied shift
         is reported as ``.shift``."""
@@ -212,11 +257,9 @@ class ILU0Preconditioner:
         lower = _strict_to_triangular(
             ld, li, lr, np.ones(n, dtype=dtype), n,
             lower=True, method=method, sweeps=sweeps,
-            strict_layout=strict_layout,
         )
         upper = _strict_to_triangular(
             ud, ui, ur, diag_f, n, lower=False, method=method, sweeps=sweeps,
-            strict_layout=strict_layout,
         )
         return cls(lower=lower, upper=upper, shift=float(shift))
 
@@ -239,7 +282,6 @@ class IC0Preconditioner:
     @classmethod
     def from_matrix(
         cls, a: CSRMatrix, *, method: str = "auto", sweeps="exact",
-        strict_layout: str = "auto",
     ) -> "IC0Preconditioner":
         data = np.asarray(a.data, dtype=np.float64)
         indices = np.asarray(a.indices, dtype=np.int64)
@@ -250,7 +292,6 @@ class IC0Preconditioner:
         n = a.shape[0]
         lower = triangular_from_csr_arrays(
             lv, lidx, lptr, lower=True, method=method, sweeps=sweeps,
-            strict_layout=strict_layout,
         )
         # transpose L -> upper CSR (host)
         row_ids = np.repeat(np.arange(n, dtype=np.int64), np.diff(lptr))
@@ -261,7 +302,6 @@ class IC0Preconditioner:
         np.cumsum(t_ptr, out=t_ptr)
         upper = triangular_from_csr_arrays(
             t_vals, t_cols, t_ptr, lower=False, method=method, sweeps=sweeps,
-            strict_layout=strict_layout,
         )
         return cls(lower=lower, upper=upper)
 
@@ -274,7 +314,7 @@ def get_preconditioner(
     including IC0/ILU0 which the reference factory cannot construct)."""
     if isinstance(kind, str):
         if kind.lower() in ("cheby", "chebyshev", "poly", "polynomial"):
-            # TPU-native addition: polynomial preconditioning (the apply
+            # addition: polynomial preconditioning (the apply
             # is k SpMVs with A — launch-light; precond/cheby_poly.py)
             from .cheby_poly import ChebyshevPreconditioner
 
@@ -312,7 +352,6 @@ def _host_split(a: CSRMatrix):
 
 def _strict_to_triangular(
     s_data, s_idx, s_row, diag, n, *, lower, method, sweeps,
-    strict_layout="auto",
 ) -> TriangularMatrix:
     """Assemble a TriangularMatrix from strict-part COO + separate diagonal."""
     counts = np.zeros(n, dtype=np.int64)
@@ -346,7 +385,6 @@ def _strict_to_triangular(
         out_idx[dst] = si
     return triangular_from_csr_arrays(
         out_val, out_idx, indptr, lower=lower, method=method, sweeps=sweeps,
-        strict_layout=strict_layout,
     )
 
 

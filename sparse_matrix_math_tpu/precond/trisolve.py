@@ -1,13 +1,13 @@
-"""Sparse triangular solves on TPU.
+"""Sparse triangular solves.
 
 The reference's preconditioner applies are sequential row sweeps
 (SGS forward/backward substitution include/sparse_matrix_math.h:1672-1711,
-IC0 h:1802-1837) — inherently serial, the main TPU-design challenge
-(SURVEY §7 "hard parts" #1).  This module provides a
+IC0 h:1802-1837) — inherently serial, the main design challenge on a
+data-parallel device (SURVEY §7 "hard parts" #1).  This module provides a
 :class:`TriangularMatrix` factor with selectable solve strategies:
 
 * ``dense``  — materialise the factor once and use
-  ``jax.scipy.linalg.solve_triangular`` (MXU-friendly, exact; memory is
+  ``jax.scipy.linalg.solve_triangular`` (exact; memory is
   O(n^2) so this is the small/medium-n path, e.g. the whole reference
   test suite).
 * ``jacobi`` — stationary Jacobi iteration on the triangular system:
@@ -15,17 +15,11 @@ IC0 h:1802-1837) — inherently serial, the main TPU-design challenge
   part.  ``D^{-1}N`` is nilpotent with index equal to the factor's
   dependency-level count, so ``sweeps >= depth`` gives the EXACT solve;
   fewer sweeps give the standard approximate (iterative) triangular
-  solve used by GPU/TPU preconditioning.  Each sweep is one fully
-  parallel SpMV — this is the scalable path.
-
-The per-sweep strict SpMV itself runs through the W-SELL Pallas layout
-(``strict_layout``) when the strict pattern packs under the slot-ratio
-cap — the same kernel hierarchy every solver uses — so SGS/IC0/ILU0
-applies reach production speed on ARBITRARY patterns, not just DIA
-stencils (the reference applies SGS to any CSR matrix,
-include/sparse_matrix_math.h:1672-1711; precond/padded_sgs.py is the
-stencil-only fused variant).  Patterns that do not pack fall back to
-the XLA take/segment-sum strict SpMV.
+  solve used by GPU preconditioning.  Each sweep is one fully
+  parallel SpMV over the strict part — this is the scalable path.  The
+  strict part is stored in any format ``rmult`` takes: CSR for factors
+  built from CSR, DIA for the strict triangles of a DIA matrix (each
+  sweep is then one fused shifted-slice pass, ops/spmv.py).
 
 The dependency depth is computed at build time (host side) via level
 scheduling, so ``sweeps="exact"`` is available without guessing.
@@ -34,11 +28,14 @@ scheduling, so ``sweeps="exact"`` is available without guessing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..formats.csr import CSRMatrix
+from ..ops.spmv import rmult
 
 __all__ = ["TriangularMatrix", "triangular_from_csr_arrays"]
 
@@ -52,42 +49,27 @@ _EXACT_SWEEP_WARN_DEPTH = 64
 class TriangularMatrix:
     """Sparse triangular factor (diagonal stored separately).
 
-    ``data/indices/indptr/row_ids`` hold the STRICT triangular part in CSR
-    layout; ``diag`` is the diagonal (all ones for unit-diagonal factors).
+    ``strict`` holds the STRICT triangular part as a matrix ``rmult``
+    takes (a CSRMatrix, or a DIAMatrix for DIA-built factors; None when
+    the part is empty); ``diag`` is the diagonal (all ones for
+    unit-diagonal factors).
     """
 
-    data: jnp.ndarray      # (snnz,) strict-part values
-    indices: jnp.ndarray   # (snnz,) int32
-    row_ids: jnp.ndarray   # (snnz,) int32
+    strict: Any            # CSRMatrix | DIAMatrix | None
     diag: jnp.ndarray      # (n,)
     dense: Optional[jnp.ndarray]  # (n, n) materialised factor, or None
-    # strict part in the W-SELL Pallas layout (formats/wsell.py), or
-    # None — when present, every Jacobi sweep's strict SpMV runs the
-    # Pallas kernel instead of take/segment_sum
-    wsell: Optional[object]
     n: int = dataclasses.field(metadata=dict(static=True))
     lower: bool = dataclasses.field(metadata=dict(static=True))
     depth: int = dataclasses.field(metadata=dict(static=True))
     method: str = dataclasses.field(metadata=dict(static=True))
     sweeps: int = dataclasses.field(metadata=dict(static=True))
 
-    def _strict_matvec(self, x: jnp.ndarray) -> jnp.ndarray:
-        if self.wsell is not None:
-            from ..ops.spmv import rmult
-
-            return rmult(self.wsell, x)
-        d = self.data[:, None] if x.ndim == 2 else self.data
-        g = d * jnp.take(x, self.indices, axis=0)
-        return jax.ops.segment_sum(
-            g, self.row_ids, num_segments=self.n, indices_are_sorted=True
-        )
-
     def solve(self, b: jnp.ndarray) -> jnp.ndarray:
         """x with T x = b (T = strict part + diag).
 
         ``b`` may be a vector (n,) or a multi-RHS panel (n, m) — every
-        step below (take/segment_sum over axis 0, solve_triangular)
-        operates column-wise, so panels solve in one pass.
+        step below (rmult, solve_triangular) operates column-wise, so
+        panels solve in one pass.
         """
         if self.method == "dense":
             return jax.scipy.linalg.solve_triangular(
@@ -98,10 +80,13 @@ class TriangularMatrix:
         if b.ndim == 2:
             inv_d = inv_d[:, None]
 
-        def sweep(x, _):
-            return (b - self._strict_matvec(x)) * inv_d, None
-
         x0 = b * inv_d
+        if self.strict is None:
+            return x0
+
+        def sweep(x, _):
+            return (b - rmult(self.strict, x)) * inv_d, None
+
         x, _ = jax.lax.scan(sweep, x0, None, length=max(self.sweeps - 1, 0))
         return x
 
@@ -116,7 +101,6 @@ def triangular_from_csr_arrays(
     method: str = "auto",
     sweeps="exact",
     dense_threshold: int = 4096,
-    strict_layout: str = "auto",
 ) -> TriangularMatrix:
     """Build a :class:`TriangularMatrix` from host CSR arrays of a
     triangular matrix (diagonal entries may be present; they are split
@@ -124,13 +108,6 @@ def triangular_from_csr_arrays(
 
     ``method="auto"`` picks ``dense`` for n <= dense_threshold else
     ``jacobi``.  ``sweeps="exact"`` uses the level-scheduling depth.
-
-    ``strict_layout`` selects how Jacobi sweeps compute the strict SpMV:
-    ``"wsell"`` forces the W-SELL Pallas layout (falls back to
-    segment-sum when the pattern pads past the slot-ratio cap),
-    ``"csr"`` forces take/segment_sum, and ``"auto"`` uses W-SELL on the
-    TPU backend only (the CPU fallback would run the kernel in slow
-    interpret mode).
     """
     data = np.asarray(data)
     indices = np.asarray(indices, dtype=np.int64)
@@ -188,36 +165,19 @@ def triangular_from_csr_arrays(
         dmat[np.arange(n), np.arange(n)] = diag
         dense = jnp.asarray(dmat)
 
-    if strict_layout not in ("auto", "wsell", "csr"):
-        raise ValueError(f"unknown strict_layout {strict_layout!r}")
-    wsell = None
-    if (
-        method == "jacobi"
-        and s_data.size
-        and (
-            strict_layout == "wsell"
-            or (strict_layout == "auto" and jax.default_backend() == "tpu")
-        )
-    ):
-        from ..formats.wsell import _wsell_from_coo
-
-        for wf in (1, 8):  # narrow windows first; wide for scattered
-            try:
-                wsell = _wsell_from_coo(
-                    s_row, s_idx, s_data, (n, n), int(s_data.size),
-                    max_slot_ratio=8.0, window_f=wf,
-                )
-                break
-            except ValueError:
-                wsell = None  # pads past the cap — try wider / fall back
-
-    return TriangularMatrix(
+    s_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(s_row, minlength=n), out=s_ptr[1:])
+    strict = CSRMatrix(
         data=jnp.asarray(s_data),
         indices=jnp.asarray(s_idx.astype(np.int32)),
+        indptr=jnp.asarray(s_ptr.astype(np.int32)),
         row_ids=jnp.asarray(s_row.astype(np.int32)),
+        shape=(int(n), int(n)),
+    )
+    return TriangularMatrix(
+        strict=strict,
         diag=jnp.asarray(diag),
         dense=dense,
-        wsell=wsell,
         n=int(n),
         lower=bool(lower),
         depth=int(depth),

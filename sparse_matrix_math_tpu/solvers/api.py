@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import jax.numpy as jnp
 
 from ..formats.csr import CSRMatrix
-from ..precond.preconditioners import get_preconditioner
+from ..precond.preconditioners import SGSPreconditioner, get_preconditioner
 from .bicg_symmetric import bicg_symmetric
 from .bicgstab import bicgstab
 from .cg import conjugate_gradient
@@ -57,15 +57,16 @@ def _build_preconditioner(a, kind: str, options):
     """Resolve a preconditioner spec for the matrix's format.
 
     CSR takes every kind (get_preconditioner); DIA takes the kinds whose
-    factors are representable in the diagonal domain: 'sgs' (PaddedSGS,
-    the padded-fast-path apply) and 'chebyshev' (format-agnostic).
+    factors are representable in the diagonal domain: 'sgs'
+    (SGSPreconditioner.from_dia, sweeps over the strict DIA factors) and 'chebyshev'
+    (format-agnostic).
     """
     from ..formats.dia import DIAMatrix
     from ..formats.reorder import ReorderedMatrix
 
     if hasattr(kind, "apply"):
         # preconditioner OBJECT passthrough: anything with apply(r) -> z
-        # (PoissonMultigrid, a prebuilt PaddedSGS, a user operator) rides
+        # (PoissonMultigrid, a prebuilt SGS, a user operator) rides
         # solve() directly — the reference's template-parameter spirit
         # (h:2191-2212) without the factory round trip
         return kind
@@ -91,11 +92,7 @@ def _build_preconditioner(a, kind: str, options):
     if isinstance(a, DIAMatrix) and k in (
         "sgs", "symmetric_gauss_seidel", "symmetric_gaus_seidel"
     ):
-        from ..precond.padded_sgs import PaddedSGS
-
-        opts = dict(options)
-        opts.setdefault("sweeps", 4)
-        return PaddedSGS.from_dia(a, **opts)
+        return SGSPreconditioner.from_dia(a, **options)
     raise ValueError(
         f"preconditioner {kind!r} is not buildable for "
         f"{type(a).__name__}; construct from CSR (get_preconditioner) "
@@ -135,7 +132,7 @@ def _build_multigrid(a, options):
 def _build_preconditioner_for(a, a_source, kind, options):
     """Build for the solve operator, falling back to the CSR source.
 
-    With ``auto_format`` the operator may be a layout (W-SELL/R-SELL)
+    With ``auto_format`` the operator may be a layout (stencil/DIA)
     whose kinds aren't directly buildable — but those layouts preserve
     row/column order, so factoring from the original CSR is exact.
     (ReorderedMatrix is NOT order-preserving; _build_preconditioner's
@@ -172,17 +169,15 @@ class SolverConfig:
     # method='cg' on DIA matrices supports it
     matrix_dtype: str = None
     # convert a CSR input through formats.best_format before solving
-    # (DIA / W-SELL / RCM+W-SELL / R-SELL / CSR by pattern) — the
-    # "switch from the reference and get the TPU fast path for free"
-    # knob.  Off by default: format builds cost host time (minutes for
-    # R-SELL at 10M+ nnz) that only amortises over real solver runs.
+    # (stencil / DIA / CSR by pattern).  Off by default: pattern
+    # detection costs host time that only amortises over real solves.
     auto_format: bool = False
     # when an f32 solve stops at its PRECISION FLOOR (floor_hit — a
     # verified-convergence restart could not shrink the true residual)
     # above ``epsilon``, re-route through the double-word refinement
     # (cg_ir_df64 / bicgstab_ir_df64) warm-started from the floored
     # iterate, delivering the reference's f64-default accuracy contract
-    # (test/include/test_common.h:30-38) on hardware without f64.  The
+    # (test/include/test_common.h:30-38) with f32 storage.  The
     # escalated call returns a DfSolveResult.  Opt out to get the bare
     # floored SolveResult back.
     auto_escalate: bool = True
@@ -204,7 +199,7 @@ def solve(
     ``b`` of shape (n, m) (a multi-RHS panel routed through
     :func:`solvers.block.cg_multi`, per-column statuses); and a
     ``DfSolveResult`` for the df64 methods or when ``auto_escalate``
-    re-routes an f32 request below the hardware's precision floor
+    re-routes an f32 request below f32's precision floor
     through the double-word refinement (see :class:`SolverConfig`).
 
     >>> solve(a, b, method="bicgstab", preconditioner="sgs", epsilon=1e-8)
@@ -273,9 +268,9 @@ def solve(
             )
         ):
             # these features ride the DIA machinery (bf16 diagonal
-            # stream / PaddedSGS / padded factor applies); the
-            # matrix-free stencil has no matrix stream to retype and no
-            # stored factors — keep the DIA layout for them
+            # stream / DIA-built SGS); the matrix-free stencil has no matrix
+            # stream to retype and no stored factors — keep the DIA
+            # layout for them
             dia = try_dia_from_csr(a_source)
             if dia is not None:
                 a = dia
@@ -306,38 +301,12 @@ def solve(
         )
     if cfg.matrix_dtype is not None:
         # bf16-matrix / f32-vector mixed precision with true-residual IR
-        import warnings
-
-        from ..formats import PerformanceWarning
         from .mixed import mixed_cg
 
         if method not in ("cg", "conjugate_gradient"):
             raise ValueError(
                 "matrix_dtype (mixed precision) is supported for "
                 "method='cg' only"
-            )
-        # Measured loser on the bench class (VERDICT r4 #5 / round-4
-        # BENCH_NOTES "mixed_cg after the nested cores"): the bf16
-        # diagonal stream wins at kernel level (1.69x per SpMV) but the
-        # refinement restarts + extra working set make the full solve
-        # 0.57-0.82x plain f32 CG at matched TRUE accuracy on narrow
-        # stencils at VMEM-resident sizes.  It pays off only when the
-        # SpMV dominates the iteration: wide stencils (many diagonals)
-        # or HBM-streamed sizes.  Warn rather than silently hand back a
-        # slowdown; the knob stays for the regimes where it wins.
-        ndiags = len(getattr(a, "offsets", ())) or None
-        if ndiags is not None and ndiags <= 9:
-            warnings.warn(
-                f"matrix_dtype={cfg.matrix_dtype!r} on a narrow "
-                f"{ndiags}-diagonal stencil: measured SLOWER than plain "
-                "f32 CG at matched true accuracy on this class "
-                "(docs/BENCH_NOTES.md round 4: 0.57-0.82x at n=2M, "
-                "5-point).  The bf16 stream wins on wide stencils "
-                "(measured 1.24x at 27 diagonals, round-5 notes) or "
-                "HBM-streamed sizes; drop matrix_dtype to use the f32 "
-                "fast path.",
-                PerformanceWarning,
-                stacklevel=2,
             )
         if cfg.preconditioner not in (None, "none"):
             raise ValueError(
@@ -404,7 +373,7 @@ _ESCALATION = {
     # residual estimate, not a verified floor), so only the PRE-ROUTE
     # fires: solve(method="gmres", epsilon=1e-8) on f32 data goes
     # straight to the nonsymmetric double-word refinement instead of
-    # burning the iteration cap below the f32 floor (VERDICT r4 #3).
+    # burning the iteration cap below the f32 floor.
     # The refinement's inner correction solver is BiCGStab — each round
     # only needs a modest RELATIVE reduction, which it delivers with
     # best-iterate guards + outer verification on exactly the systems
@@ -444,7 +413,7 @@ def _escalated_solve(a_source, b, x0, cfg, method, kwargs, a_solve=None):
 
 def _maybe_escalate(res, a_source, b, cfg, method, kwargs, a_solve=None):
     """Escalate a precision-floored f32 solve to the double-word
-    refinement path (VERDICT r3 #3/#6): the solver itself measured that
+    refinement path: the solver itself measured that
     more iterations cannot help (``floor_hit``), and the floor sits
     above the requested ``epsilon`` — the request is only satisfiable
     with more precision, which ``*_ir_df64`` delivers at ~f32 cost

@@ -1,6 +1,6 @@
 """BiCG specialisation for symmetric matrices.
 
-TPU-native re-design of the reference ``BiCGSymmetric``
+Re-design of the reference ``BiCGSymmetric``
 (include/sparse_matrix_math.h:2021-2102).  For SPD systems it produces
 the same iterates as CG (reference README.md:27-28); it exists because —
 unlike CG — it carries the reference's explicit breakdown heuristics for
@@ -54,20 +54,12 @@ def bicg_symmetric(
         x0 = jnp.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, n)
     eps = jnp.asarray(epsilon, dtype=b.dtype)
-    from . import _padded, _stencil
+    from . import _stencil
 
     if _stencil.eligible(a):
-        res = _stencil.stencil_solve(
+        return _stencil.stencil_solve(
             "bicg_symmetric", a, b, x0, eps, maxiter, record_residuals
         )
-        if res is not None:
-            return res
-    if _padded.eligible(a):
-        res = _padded.padded_solve(
-            "bicg_symmetric", a, b, x0, eps, maxiter, record_residuals
-        )
-        if res is not None:
-            return res
     return _bicg_sym_loop(a, b, x0, eps, maxiter, record_residuals)
 
 
@@ -87,7 +79,7 @@ def bicg_symmetric_core(
     claim restarts from the true residual, stalling twice in a row stops
     with MAX_ITERATIONS_REACHED at the precision floor.
 
-    Nested structure (round 4, see cg_core): the inner while_loop is the
+    Nested structure (see cg_core): the inner while_loop is the
     pure recurrence with the reference's scalar breakdown heuristics
     (h:2047-2081) as exit flags; the outer loop verifies claims — the
     per-iteration verify ``lax.cond`` cost ~60 us/iter at n=2M even when

@@ -1,6 +1,6 @@
 """BiCGStab — transpose-free stabilised BiCG, optionally preconditioned.
 
-TPU-native re-design of the reference ``BiCGStab``
+Re-design of the reference ``BiCGStab``
 (include/sparse_matrix_math.h:2191-2283 + unpreconditioned overload
 h:2294-2303).  Behavioral parity:
 
@@ -60,22 +60,13 @@ def bicgstab(
         x0 = jnp.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, n)
     eps = jnp.asarray(epsilon, dtype=b.dtype)
-    from . import _padded, _stencil
+    from . import _stencil
 
     if _stencil.eligible(a, preconditioner):
-        res = _stencil.stencil_solve(
+        return _stencil.stencil_solve(
             "bicgstab", a, b, x0, eps, maxiter, record_residuals,
             preconditioner=preconditioner,
         )
-        if res is not None:
-            return res
-    if _padded.eligible(a, preconditioner):
-        res = _padded.padded_solve(
-            "bicgstab", a, b, x0, eps, maxiter, record_residuals,
-            preconditioner=preconditioner,
-        )
-        if res is not None:
-            return res
     if preconditioner is None:
         return _bicgstab_loop(a, b, x0, eps, maxiter, record_residuals)
     return _bicgstab_precond_loop(
@@ -96,11 +87,11 @@ def _bicgstab_precond_loop(a, m, b, x0, eps, maxiter: int, record: bool):
 
 
 # Divergence cutoff: residual above this multiple of the best seen is an
-# explosion, not a BiCGStab transient.  Measured on the n=2M/SGS(4) f32
-# system: legitimate mid-run spikes reach 2.3e4x the running best and
-# recover (the global minimum comes 450 iterations after one); the
-# terminal blow-up passes 1e6x ~80 iterations past the minimum and never
-# recovers (docs/BENCH_NOTES.md round 3).
+# explosion, not a BiCGStab transient.  On the n=2M/SGS(4) f32 system
+# legitimate mid-run spikes reach 2.3e4x the running best and recover
+# (the global minimum comes 450 iterations after one); the terminal
+# blow-up passes 1e6x ~80 iterations past the minimum and never
+# recovers.
 _EXPLOSION_FACTOR = 1e6
 
 
@@ -119,8 +110,8 @@ def bicgstab_core(matvec, precond, dotfn, b, x0, eps, maxiter: int, record: bool
     MAX_ITERATIONS_REACHED, reporting the floor.
 
     Best-iterate return: f32 BiCGStab can pass its precision floor and
-    then EXPLODE (measured at n=2M/SGS(4): minimum 3.9e-4 at iteration
-    832, +inf by 1653 — the reference's unguarded recursion does the
+    then EXPLODE (at n=2M/SGS(4): minimum 3.9e-4 at iteration 832,
+    +inf by 1653 — the reference's unguarded recursion does the
     same, its breakdown checks are TODOs h:2260/2270).  The loop tracks
     the best recurrence iterate, cuts off when the residual exceeds
     ``_EXPLOSION_FACTOR`` x the best (DIVERGED), and on any non-SUCCESS
@@ -139,17 +130,14 @@ def bicgstab_core(matvec, precond, dotfn, b, x0, eps, maxiter: int, record: bool
         else None
     )
 
-    # Nested structure (round 4, see cg_core): the INNER while_loop is
-    # the pure BiCGStab recurrence — the shape of reference h:2232-2277
-    # with only scalar breakdown guards — and exits at a claimed
-    # convergence, a breakdown, an explosion, or a 64-iteration chunk
-    # boundary.  The OUTER loop does the per-exit work that round 3 ran
-    # as per-iteration `lax.cond`s (true-residual verify h:2277-parity,
-    # best-iterate sampling, restart/floor logic): those conds cost
-    # ~60 us/iter at n=2M on TPU v5e by breaking the VMEM residency of
-    # the carries (benchmarks/profile_cg_iter2.py).  The every-64
-    # true-residual sampling cadence is unchanged — it is now simply the
-    # outer round boundary.
+    # Nested structure (see cg_core): the INNER while_loop is the pure
+    # BiCGStab recurrence — the shape of reference h:2232-2277 with only
+    # scalar breakdown guards — and exits at a claimed convergence, a
+    # breakdown, an explosion, or a 64-iteration chunk boundary.  The
+    # OUTER loop does the per-exit work (true-residual verify
+    # h:2277-parity, best-iterate sampling, restart/floor logic) with no
+    # per-iteration `lax.cond`; the every-64 true-residual sampling
+    # cadence is simply the outer round boundary.
     def inner(x, r, r0, p, rr0, k_start, explode_at, trace):
         chunk_end = jnp.minimum(k_start + 64, maxiter)
 

@@ -2,8 +2,8 @@
 
 The reference solves one RHS per call (``SolverStatus f(A, b, x, ...)``,
 include/sparse_matrix_math.h:2316-2320); solving k systems costs k full
-Krylov runs.  On TPU the SpMV generalises to SpMM, so the multi-RHS
-design runs ALL right-hand sides through one iteration loop:
+Krylov runs.  Here the SpMV generalises to SpMM, so the multi-RHS design
+runs ALL right-hand sides through one iteration loop:
 
 * one SpMM ``A @ P`` per iteration instead of m SpMVs,
 * per-column dots / axpys as per-column reductions on leading-batch
@@ -12,19 +12,8 @@ design runs ALL right-hand sides through one iteration loop:
   freeze exactly — their x/r/p stop updating — while the rest continue;
   the loop exits when every column has left the RUNNING state.
 
-Panel economics (measured round 5, n=2M 5-point stencil, TPU v5e;
-single-RHS cg = 31 us/iter VMEM-resident): the knee is WHERE THE PANEL
-CARRIES OUTGROW VMEM, not an arithmetic-intensity knee — a
-bandwidth-bound SpMM's traffic scales with m, so extra columns are
-never "free"; what batching buys is shared launch/masking overhead and
-full batching of the recurrence.  m=1: 55 us/iter (1.8x single — the
-freeze machinery's cost).  m=2: 102 us (per-column 98 GNNZ/s, carries
-still VMEM-pinnable).  m=4/8/16: HBM-streamed, converging to ~170 us
-PER COLUMN — i.e. each column pays about what an HBM-streamed
-single-RHS solve of this n would pay, 3.5x better than the round-4
-layout (lane-padded (n, m) panels + vmapped apply: 580 us/column at
-m=8).  Prefer m <= 2 panels at VMEM-resident sizes; at HBM-streamed
-sizes any m amortises equally.
+A bandwidth-bound SpMM's traffic scales with m, so extra columns are
+never free; what batching buys is shared launch and loop overhead.
 
 This is the "batched CG" formulation (independent recurrences, shared
 kernels), chosen over classical block-CG (O'Leary) deliberately: block-CG
@@ -113,60 +102,28 @@ def cg_multi(
         x0 = jnp.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, n)
     eps = jnp.asarray(epsilon, dtype=b.dtype)
-    mv_mode = _probe_mode(
-        lambda: jax.vmap(matvec_fn(a)), m, n, b.dtype
-    )
-    pre_mode = "none"
-    if preconditioner is not None:
-        pre_mode = _probe_mode(
-            lambda: jax.vmap(preconditioner.apply), m, n, b.dtype
-        )
     return _cg_multi_loop(
         a, preconditioner, b, x0, eps, maxiter, bool(record_residuals),
-        mv_mode, pre_mode,
     )
 
 
-def _probe_mode(make_vmapped, m: int, n: int, dtype) -> str:
-    """'vmap' when the row-wise batched form traces on an (m, n) panel,
-    else 'transpose' (per-iteration transpose sandwich around the
-    column-panel form — correct for every operator, costs two extra
-    panel passes)."""
-    try:
-        jax.eval_shape(
-            make_vmapped(), jax.ShapeDtypeStruct((m, n), dtype)
-        )
-        return "vmap"
-    except Exception:
-        return "transpose"
-
-
-@partial(jax.jit, static_argnums=(5, 6, 7, 8))
+@partial(jax.jit, static_argnums=(5, 6))
 def _cg_multi_loop(
     a, precond, b, x0, eps, maxiter: int, record: bool,
-    mv_mode: str = "vmap", pre_mode: str = "none",
 ) -> MultiSolveResult:
-    """Nested structure (round 4, see solvers/cg.py:cg_core): the inner
+    """Nested structure (see solvers/cg.py:cg_core): the inner
     while_loop is the pure batched recurrence with per-column freeze
     masks and only SCALAR exit flags; the outer loop verifies claims /
-    handles divergence / restarts refuted columns once per inner exit.
-    The round-3 shape ran the verify as a per-iteration ``lax.cond``
-    whose operands were the full panels — 64 MB of copies per iteration
-    at the bench size even when no column was claiming.
+    handles divergence / restarts refuted columns once per inner exit,
+    so no per-iteration ``lax.cond`` copies the full panels.
 
-    PANEL-MAJOR internals (round 5): every panel is carried with the
-    column index LEADING — ``(m, *grid_dims)`` for stencil operators,
-    ``(m, n)`` otherwise.  The user-facing (n, m) layout puts m on the
-    LANE axis, which TPU tiling pads to 128 lanes: an (n, 4) f32 panel
-    physically stores (and streams) 32x its logical bytes — measured
-    2.28 ms per m=4 iteration at n=2M where m=1 cost 0.25 ms (VERDICT
-    r4 weak #2).  For stencils the batched apply is ONE explicit
-    pad+slice over the grid axes (GridStencilMatrix.apply_batched:
-    90 us at m=4/n=2M vs 2010 us for the vmapped per-sample form) and
-    the (m, d0, d1) layout has no tile padding at all.  Other operators
-    batch via ``jax.vmap`` of the single-vector apply, with a
-    transpose sandwich for kernels that refuse vmap (_probe_mode).
-    B and X convert once at entry/exit."""
+    PANEL-MAJOR internals: every panel is carried with the column index
+    LEADING — ``(m, *grid_dims)`` for stencil operators, ``(m, n)``
+    otherwise — so each column is a contiguous run of memory.  For
+    stencils the batched apply is ONE explicit pad+slice over the grid
+    axes (GridStencilMatrix.apply_batched).  Other operators batch via
+    ``jax.vmap`` of the single-vector apply.  B and X convert once at
+    entry/exit."""
     eps2 = eps * eps
     m = b.shape[1]
 
@@ -185,9 +142,7 @@ def _cg_multi_loop(
             return X.reshape(m, -1).T
     elif isinstance(a, DIAMatrix) and a.offsets:
         # explicit leading-batch DIA apply (shifts move to the LAST
-        # axis): same hazard class as the stencil branch — vmapping
-        # pad/slice code is a TPU compile trap, and _probe_mode only
-        # checks traceability, not compile quality
+        # axis), the same shape as the stencil branch
         extra = 1
         n_rows, n_cols = a.shape
         lpad = max(-min(a.offsets), 0)
@@ -214,12 +169,7 @@ def _cg_multi_loop(
             return X.T
     else:
         extra = 1
-        mv1 = matvec_fn(a)
-        if mv_mode == "vmap":
-            matvec = jax.vmap(mv1)
-        else:
-            def matvec(xT):
-                return mv1(xT.T).T
+        matvec = jax.vmap(matvec_fn(a))
 
         def lift(B2):
             return B2.T
@@ -230,13 +180,13 @@ def _cg_multi_loop(
     def cb(v):  # broadcast a per-column (m,) vector over a panel
         return v.reshape((m,) + (1,) * extra)
 
-    if pre_mode == "none":
+    if precond is None:
         mapply = None
-    elif pre_mode == "vmap" and extra == 1:
+    elif extra == 1:
         mapply = jax.vmap(precond.apply)
     else:
-        # stencil-layout panels (or vmap-refusing applies): the
-        # preconditioner sees the user-facing (n, m) panel
+        # stencil-layout panels: the preconditioner sees the
+        # user-facing (n, m) panel
         def mapply(rT):
             return lift(precond.apply(drop(rT)))
 

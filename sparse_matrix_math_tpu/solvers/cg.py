@@ -1,6 +1,6 @@
 """Conjugate Gradient (plain and preconditioned) as a jitted while_loop.
 
-TPU-native re-design of the reference ``ConjugateGradient``
+Re-design of the reference ``ConjugateGradient``
 (include/sparse_matrix_math.h:2316-2398) and its preconditioned overload
 (h:2414-2505).  Behavioral parity:
 
@@ -19,7 +19,7 @@ Improvements over the reference (SURVEY §7): non-finite reductions are
 detected and reported as DIVERGED instead of looping on NaN.
 
 The whole iteration runs inside ``jax.lax.while_loop`` under ``jit`` —
-XLA fuses SpMV + dots + axpys into a handful of kernels, the TPU-native
+XLA fuses SpMV + dots + axpys into a handful of kernels, the
 equivalent of the reference's per-loop TBB parallel_for blocks
 (h:2362-2394).  The matrix and the preconditioner cross the jit boundary
 as pytree arguments, so compilations are cached per matrix structure.
@@ -71,22 +71,13 @@ def conjugate_gradient(
         x0 = jnp.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, n)
     eps = jnp.asarray(epsilon, dtype=b.dtype)
-    from . import _padded, _stencil
+    from . import _stencil
 
     if _stencil.eligible(a, preconditioner):
-        res = _stencil.stencil_solve(
+        return _stencil.stencil_solve(
             "cg", a, b, x0, eps, maxiter, record_residuals,
             preconditioner=preconditioner,
         )
-        if res is not None:
-            return res
-    if _padded.eligible(a, preconditioner):
-        res = _padded.padded_solve(
-            "cg", a, b, x0, eps, maxiter, record_residuals,
-            preconditioner=preconditioner,
-        )
-        if res is not None:
-            return res
     if preconditioner is None:
         return _cg_loop(a, b, x0, eps, maxiter, record_residuals)
     return _pcg_loop(a, preconditioner, b, x0, eps, maxiter, record_residuals)
@@ -107,7 +98,7 @@ def cg_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -> SolveResul
 
     Verified convergence: the recurrence residual drifts from the true
     residual ``b - A x`` in finite precision (at n=2M/f32 the drift is
-    >50x eps by iteration ~2000 — BENCH_NOTES).  SUCCESS here means the
+    >50x eps by iteration ~2000).  SUCCESS here means the
     TRUE residual passed: when the recurrence claims convergence the
     solve recomputes ``b - matvec(x)`` (one extra SpMV, only at claimed
     convergence), and either confirms SUCCESS or restarts from the true
@@ -117,25 +108,15 @@ def cg_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -> SolveResul
     ``residual_norm`` — this matches the contract of the reference tests
     (test/include/test_common.h:30-51), which measure the actual error.
 
-    Structure (round 4): NESTED loops.  The inner ``while_loop`` is the
-    pure textbook recurrence (1 SpMV, 2 dots, 3 axpys — the shape of
+    Structure: NESTED loops.  The inner ``while_loop`` is the pure
+    textbook recurrence (1 SpMV, 2 dots, 3 axpys — the shape of
     reference h:2352-2396) with zero branch machinery; the outer loop
     performs the verify/restart/floor logic once per CLAIMED
-    convergence.  Round 3 ran the verify as a per-iteration
-    ``lax.cond``, which cost ~60 us/iter at n=2M on TPU v5e even when
-    the branch never executed (the cond's operand/result copies break
-    XLA's VMEM-resident fusion of the carries); measured on the 10M-nnz
-    bench system this restructure takes an iteration from 107.6 us to
-    46.7 us — vs 61.6 us for a bare SpMV loop, i.e. the dots and axpys
-    now ride VMEM residency for ~free (benchmarks/profile_cg_iter2.py).
+    convergence, so no per-iteration ``lax.cond`` copies operands.
 
     The outer carry holds NO residual vector — each round recomputes
-    the true residual from ``x`` at entry (one SpMV per round).  An
-    outer while_loop that carries an (n,)-vector next to the inner loop
-    pins one more buffer across every inner iteration and displaces a
-    VMEM-resident carry: measured +32 us on EVERY inner iteration at
-    n=2M (77.6 vs 46.0 us/iter) — far more than the one SpMV per round
-    the recompute costs.
+    the true residual from ``x`` at entry (one SpMV per round), so the
+    outer loop pins no extra (n,)-buffer across the inner iterations.
     """
     dot = dotfn
     eps2 = eps * eps
@@ -188,8 +169,8 @@ def cg_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -> SolveResul
 
         # verify every claim against the TRUE residual; also runs on the
         # cap/divergence exits, where it supplies the honest
-        # ||b - A x|| for residual_norm (round 3 did this after the
-        # loop; here it is the same single SpMV per outer round)
+        # ||b - A x|| for residual_norm (the same single SpMV per outer
+        # round)
         r_t = b - matvec(x)
         t_rr = dot(r_t, r_t)
         verified = claimed & (t_rr < eps2)
@@ -249,7 +230,7 @@ def pcg_core(matvec, precond_apply, dotfn, b, x0, eps, maxiter: int, record: boo
     Convergence is verified against the TRUE residual ``b - A x`` exactly
     as in :func:`cg_core`; a refuted claim restarts the recursion from
     the true residual (``z = M^{-1} r_true``, ``p = z``).  Same nested
-    inner-pure / outer-verify structure as :func:`cg_core` (round 4) —
+    inner-pure / outer-verify structure as :func:`cg_core` —
     the inner loop is the textbook PCG recurrence (reference pseudocode
     h:2424-2434) with zero branch machinery.
     """

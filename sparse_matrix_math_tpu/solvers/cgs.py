@@ -1,7 +1,7 @@
 """Conjugate Gradient Squared — transpose-free BiCG with squared residual
 polynomial.
 
-TPU-native implementation of the algorithm the reference *intends* in
+Implementation of the algorithm the reference *intends* in
 ``ConjugateGradientSquared`` (include/sparse_matrix_math.h:2109-2178).
 The reference version does not compile when instantiated — its
 ``residualSquared`` is declared inside the do-block but referenced in the
@@ -61,20 +61,12 @@ def conjugate_gradient_squared(
         x0 = jnp.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, n)
     eps = jnp.asarray(epsilon, dtype=b.dtype)
-    from . import _padded, _stencil
+    from . import _stencil
 
     if _stencil.eligible(a):
-        res = _stencil.stencil_solve(
+        return _stencil.stencil_solve(
             "cgs", a, b, x0, eps, maxiter, record_residuals
         )
-        if res is not None:
-            return res
-    if _padded.eligible(a):
-        res = _padded.padded_solve(
-            "cgs", a, b, x0, eps, maxiter, record_residuals
-        )
-        if res is not None:
-            return res
     return _cgs_loop(a, b, x0, eps, maxiter, record_residuals)
 
 
@@ -108,7 +100,7 @@ def cgs_core(matvec, dotfn, b, x0, eps, maxiter: int, record: bool) -> SolveResu
         else None
     )
 
-    # Nested structure (round 4, see cg_core): inner pure CGS recursion
+    # Nested structure (see cg_core): inner pure CGS recursion
     # with scalar breakdown exit flags, outer verify/restart/floor — the
     # per-iteration verify lax.cond cost ~60 us/iter at n=2M even when
     # the branch never ran (benchmarks/profile_cg_iter2.py).

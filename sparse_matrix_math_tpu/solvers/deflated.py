@@ -1,6 +1,6 @@
 """Deflated CG: remove the lowest modes from the Krylov iteration.
 
-TPU-native surplus (no reference equivalent): for ill-conditioned SPD
+Beyond the reference (no equivalent there): for ill-conditioned SPD
 systems — or sequences of solves with the same operator — CG's
 iteration count is governed by the lowest eigenvalues.  Deflation
 handles those k modes DIRECTLY with a small dense solve and runs CG in
@@ -17,9 +17,11 @@ version of the conjugate gradient algorithm", SISC 21(5), 2000):
   ``P z = z - W G^{-1} (AW)^T z``), which keeps ``W^T r = 0`` so the
   small solve never has to be repeated.
 
-Every step is MXU-friendly: the per-iteration extra cost over plain CG
-is one (n, k) matmul pair and one (k, k) triangular solve — negligible
-for k <= 64 — and the basis is reusable across right-hand sides.
+The per-iteration extra cost over plain CG is one (n, k) matmul pair
+and one (k, k) triangular solve — negligible for k <= 64 — and the basis
+is reusable across right-hand sides.  Every dense product pins
+``precision=HIGHEST``: the default f32 matmul precision may be TF32 on
+GPUs, which would break the A-orthogonality the method relies on.
 """
 
 from __future__ import annotations
@@ -36,6 +38,16 @@ import dataclasses
 from ..ops.spmv import as_operator, matvec_fn
 from ..formats.reorder import ReorderedMatrix
 from .types import RUNNING, SolveResult, SolverStatus, resolve_max_iterations
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
+
+def _vdot(a, b):
+    return jnp.vdot(a, b, precision=_HIGHEST)
 
 __all__ = ["lanczos_deflation_basis", "deflated_cg"]
 
@@ -61,7 +73,7 @@ def lanczos_deflation_basis(
 
     Full reorthogonalisation (two classical Gram-Schmidt passes per
     step against the whole stored panel) costs two (n, m) matmuls per
-    step — MXU work — and keeps the Ritz vectors usable in f32, where
+    step and keeps the Ritz vectors usable in f32, where
     plain Lanczos loses orthogonality within tens of steps.
     """
     a = as_operator(a)
@@ -105,7 +117,7 @@ def lanczos_deflation_basis(
             stacklevel=2,
         )
     y = jnp.asarray(evecs[:, keep].astype(np.asarray(V).dtype))
-    w = V @ y  # (n, k) Ritz vectors (orthonormal up to Lanczos accuracy)
+    w = _mm(V, y)  # (n, k) Ritz vectors (orthonormal up to Lanczos accuracy)
     return w / jnp.maximum(
         jnp.linalg.norm(w, axis=0, keepdims=True), 1e-30
     )
@@ -122,12 +134,12 @@ def _lanczos_panel(a, seed, n: int, m: int, dtype):
         V, beta_prev = carry
         v = V[:, j]
         w = matvec(v) - beta_prev * V[:, j - 1] * (j > 0)
-        alpha = jnp.vdot(v, w)
+        alpha = _vdot(v, w)
         w = w - alpha * v
         # two classical Gram-Schmidt passes against the stored panel
         # (columns > j are zero, so the full-panel matmul is safe)
         for _ in range(2):
-            w = w - V @ (V.T @ w)
+            w = w - _mm(V, _mm(V.T, w))
         beta = jnp.linalg.norm(w)
         v_next = w / jnp.maximum(beta, jnp.asarray(1e-30, dtype))
         V = jax.lax.cond(
@@ -209,7 +221,7 @@ def _deflated_cg_loop(a, precond, w, b, x0, eps, maxiter: int) -> SolveResult:
         return r if precond is None else precond.apply(r)
 
     aw = matvec(w)                       # (n, k): rmult broadcasts panels
-    g = w.T @ aw                         # (k, k) SPD Gram matrix
+    g = _mm(w.T, aw)                     # (k, k) SPD Gram matrix
     cho = jax.scipy.linalg.cho_factor(g)
 
     def gsolve(u):
@@ -217,17 +229,17 @@ def _deflated_cg_loop(a, precond, w, b, x0, eps, maxiter: int) -> SolveResult:
 
     def project(z):
         # P z = z - W G^{-1} (AW)^T z  =>  (AW)^T P z = 0
-        return z - w @ gsolve(aw.T @ z)
+        return z - _mm(w, gsolve(_mm(aw.T, z)))
 
     # init-CG: eliminate the W-component of the initial residual with
     # one small dense solve; afterwards W^T r = 0 and the projected
     # directions keep it so
     r = b - matvec(x0)
-    x0 = x0 + w @ gsolve(w.T @ r)
+    x0 = x0 + _mm(w, gsolve(_mm(w.T, r)))
     r = b - matvec(x0)
     z = mapply(r)
-    rz = jnp.vdot(r, z)
-    rr = jnp.vdot(r, r)
+    rz = _vdot(r, z)
+    rr = _vdot(r, r)
     p = project(z)
     status0 = jnp.where(rr <= eps2, SolverStatus.SUCCESS, RUNNING).astype(
         jnp.int32
@@ -240,7 +252,7 @@ def _deflated_cg_loop(a, precond, w, b, x0, eps, maxiter: int) -> SolveResult:
     def body(carry):
         x, r, z, p, rz, k, status = carry
         ap = matvec(p)
-        pap = jnp.vdot(p, ap)
+        pap = _vdot(p, ap)
         alpha = rz / pap
         x = x + alpha * p
         r = r - alpha * ap
@@ -249,10 +261,10 @@ def _deflated_cg_loop(a, precond, w, b, x0, eps, maxiter: int) -> SolveResult:
         # lets rounding re-grow the deflated component until the solve
         # DIVERGES (measured on the near-null ring Laplacian); this one
         # (n, k) matmul pair per iteration keeps it pinned at roundoff
-        r = r - aw @ gsolve(w.T @ r)
+        r = r - _mm(aw, gsolve(_mm(w.T, r)))
         z = mapply(r)
-        new_rz = jnp.vdot(r, z)
-        rr = jnp.vdot(r, r)
+        new_rz = _vdot(r, z)
+        rr = _vdot(r, r)
         diverged = ~jnp.isfinite(rr)
         converged = rr <= eps2
         status = jnp.where(
@@ -273,13 +285,13 @@ def _deflated_cg_loop(a, precond, w, b, x0, eps, maxiter: int) -> SolveResult:
     # system; whatever deflated-space residual accumulated in finite
     # precision is eliminated with one more small dense solve
     rfin = b - matvec(x)
-    coef = gsolve(w.T @ rfin)
-    x = x + w @ coef
-    rfin = rfin - aw @ coef
+    coef = gsolve(_mm(w.T, rfin))
+    x = x + _mm(w, coef)
+    rfin = rfin - _mm(aw, coef)
     return SolveResult(
         x=x,
         status=status,
         iterations=k,
-        residual_norm=jnp.sqrt(jnp.vdot(rfin, rfin)),
+        residual_norm=jnp.sqrt(_vdot(rfin, rfin)),
         residual_trace=None,
     )

@@ -2,17 +2,15 @@
 
 The reference solves in ``double`` end-to-end
 (include/sparse_matrix_math.h:2316-2398) with a 1e-8 accuracy contract
-(test/include/test_common.h:30-38).  TPU hardware has no f64; this
-module runs the ENTIRE CG recurrence — operator, vectors, dots, scalar
-recurrences — in double-word f32 arithmetic (ops/df32.py, ~2^-47 unit
-roundoff), reaching the reference's f64 iteration counts and residual
-levels on the chip itself rather than only on the CPU backend.
+(test/include/test_common.h:30-38).  This module runs the ENTIRE CG
+recurrence — operator, vectors, dots, scalar recurrences — in
+double-word f32 arithmetic (ops/df32.py, ~2^-47 unit roundoff),
+reaching the reference's f64 iteration counts and residual levels with
+f32 storage.
 
-Cost model: ~40 VPU flops per nnz for the SpMV and ~60 per vector
-element for the recurrences, all fused by XLA into a handful of
-bandwidth-bound kernels; the measured per-iteration cost stays within a
-small factor of plain f32 CG (docs/DESIGN.md "f64 on hardware" section
-records the numbers).
+Cost model: ~40 flops per nnz for the SpMV and ~60 per vector element
+for the recurrences, all fused by XLA into a handful of bandwidth-bound
+kernels.
 """
 
 from __future__ import annotations
@@ -100,7 +98,7 @@ def _as_df_operator(a):
     from ..formats.csr import CSRMatrix
 
     if isinstance(a, CSRMatrix):
-        # NOTE: device CSR values are f32 on TPU, so the lo planes are
+        # NOTE: device CSR values are usually f32, so the lo planes are
         # zero — operator accuracy is f32; the recurrence still runs
         # double-word.  Load via io.load_matrix_df (or
         # df_operator_from_host_csr with host f64 data) for full parity.
@@ -126,14 +124,13 @@ def _as_df_vector(b) -> Tuple[jnp.ndarray, jnp.ndarray]:
     return b, jnp.zeros_like(b)
 
 
-@partial(jax.jit, static_argnames=("maxiter", "use_pallas"))
-def _cg_df_core(a: DfEllMatrix, b, x0, maxiter: int, eps2,
-                use_pallas: bool = True):
+@partial(jax.jit, static_argnames=("maxiter",))
+def _cg_df_core(a: DfEllMatrix, b, x0, maxiter: int, eps2):
     """Double-word CG while_loop (same recurrence structure as
     solvers/cg.py:cg_core, every quantity an (hi, lo) pair)."""
-    from ..ops.df32 import df_dot, df_matvec_fn
+    from ..ops.df32 import df_dot
 
-    mv = df_matvec_fn(a, use_pallas)  # layout hoisted out of the loop
+    mv = a.rmult_df
     r = df_sub(b, mv(x0))
     rr = df_norm2(r)
     p = r
@@ -179,9 +176,8 @@ def _cg_df_core(a: DfEllMatrix, b, x0, maxiter: int, eps2,
     return x, rr, k, status
 
 
-@partial(jax.jit, static_argnames=("maxiter", "use_pallas"))
-def _bicgstab_df_core(a, b, x0, maxiter: int, eps2,
-                      use_pallas: bool = True):
+@partial(jax.jit, static_argnames=("maxiter",))
+def _bicgstab_df_core(a, b, x0, maxiter: int, eps2):
     """Double-word BiCGStab while_loop (same recurrence structure as
     solvers/bicgstab.py:bicgstab_core, unpreconditioned, every quantity
     an (hi, lo) pair).
@@ -192,9 +188,9 @@ def _bicgstab_df_core(a, b, x0, maxiter: int, eps2,
     recomputes the true residual once (one extra SpMV) and the reported
     norm/status are based on it — the same contract as the f32 cores.
     """
-    from ..ops.df32 import df_dot, df_matvec_fn
+    from ..ops.df32 import df_dot
 
-    mv = df_matvec_fn(a, use_pallas)  # layout hoisted out of the loop
+    mv = a.rmult_df
     tiny = jnp.float32(np.finfo(np.float32).tiny)
 
     r = df_sub(b, mv(x0))
@@ -271,8 +267,8 @@ def bicgstab_df64(
 
     The nonsymmetric counterpart of :func:`cg_df64`: the reference runs
     BiCGStab in double at 1e-8 (h:2191-2303 + test tolerances
-    test_common.h:30-38); this reaches that bar on TPU hardware through
-    double-word f32 arithmetic.  Same operator conventions as
+    test_common.h:30-38); this reaches that bar through double-word f32
+    arithmetic.  Same operator conventions as
     :func:`cg_df64`; breakdown divisions are guarded → DIVERGED
     (completing the reference's TODOs h:2260/2270 at f64 precision).
     """
@@ -286,20 +282,7 @@ def bicgstab_df64(
     )
     maxiter = resolve_max_iterations(max_iterations, n)
     eps2 = jnp.float32(float(epsilon) ** 2)
-    if jax.default_backend() == "tpu" and isinstance(a, DfDiaMatrix):
-        try:
-            x, rr, k, status = _bicgstab_df_core(a, b, x0, maxiter, eps2)
-        except Exception as e:  # Mosaic compile refusal -> XLA formulation
-            from ..ops.spmv import _warn_pallas_fallback
-
-            _warn_pallas_fallback(e)
-            x, rr, k, status = _bicgstab_df_core(
-                a, b, x0, maxiter, eps2, use_pallas=False
-            )
-    else:
-        # no Pallas kernel in play: a failure is a genuine error and
-        # must propagate directly, not re-run under a fallback warning
-        x, rr, k, status = _bicgstab_df_core(a, b, x0, maxiter, eps2)
+    x, rr, k, status = _bicgstab_df_core(a, b, x0, maxiter, eps2)
     return DfSolveResult(
         x_hi=x[0], x_lo=x[1], status=status, iterations=k,
         residual_norm2=rr[0],
@@ -325,7 +308,7 @@ def cg_df64(
       x0: optional initial guess, same conventions as ``b``.
       max_iterations: -1 means n (reference convention, h:2345-2347).
       epsilon: L2 residual threshold — the reference's f64 1e-8 bar is
-        genuinely reachable on TPU through this path.
+        reachable with f32 storage through this path.
     """
     a = _as_df_operator(a)
     b = _as_df_vector(b)
@@ -337,20 +320,7 @@ def cg_df64(
     )
     maxiter = resolve_max_iterations(max_iterations, n)
     eps2 = jnp.float32(float(epsilon) ** 2)
-    if jax.default_backend() == "tpu" and isinstance(a, DfDiaMatrix):
-        try:
-            x, rr, k, status = _cg_df_core(a, b, x0, maxiter, eps2)
-        except Exception as e:  # Mosaic compile refusal -> XLA formulation
-            from ..ops.spmv import _warn_pallas_fallback
-
-            _warn_pallas_fallback(e)
-            x, rr, k, status = _cg_df_core(
-                a, b, x0, maxiter, eps2, use_pallas=False
-            )
-    else:
-        # no Pallas kernel in play: a failure is a genuine error and
-        # must propagate directly, not re-run under a fallback warning
-        x, rr, k, status = _cg_df_core(a, b, x0, maxiter, eps2)
+    x, rr, k, status = _cg_df_core(a, b, x0, maxiter, eps2)
     return DfSolveResult(
         x_hi=x[0], x_lo=x[1], status=status, iterations=k,
         residual_norm2=rr[0],

@@ -1,13 +1,15 @@
-"""Restarted GMRES — the general nonsymmetric workhorse, MXU-shaped.
+"""Restarted GMRES — the general nonsymmetric workhorse, panel-shaped.
 
-TPU-native surplus (the reference's nonsymmetric solvers are
-BiCGStab/CGS, include/sparse_matrix_math.h:2109-2303; it has no
-minimal-residual method).  GMRES(m) is included because its inner
-Arnoldi step is a natural MXU workload: with the Krylov panel V stored
-as an (m+1, n) matrix, each orthogonalisation is two panel matmuls
-(``V @ w`` then ``w - V.T @ h``, classical Gram-Schmidt twice — CGS2,
-the communication-minimal variant that is also the TPU-friendly one),
-not m sequential dot/axpy pairs.
+Beyond the reference (its nonsymmetric solvers are BiCGStab/CGS,
+include/sparse_matrix_math.h:2109-2303; it has no minimal-residual
+method).  With the Krylov panel V stored as an (m+1, n) matrix, each
+Arnoldi orthogonalisation is two panel products (``V @ w`` then
+``w - V.T @ h``, classical Gram-Schmidt twice — CGS2, the
+communication-minimal variant), not m sequential dot/axpy pairs.
+
+Every dense product here pins ``precision=HIGHEST``: the default f32
+matmul precision may be TF32 on GPUs, which would cost the basis its
+orthogonality.
 
 Design points:
 
@@ -36,7 +38,22 @@ from ..ops.spmv import as_operator, matvec_fn
 from ..formats.reorder import reorder_hoisted
 from .types import harmonize_dtypes, RUNNING, SolveResult, SolverStatus, resolve_max_iterations
 
-__all__ = ["gmres", "gmres_core"]
+__all__ = ["gmres", "gmres_core", "arnoldi_basis"]
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
+
+def _cgs2(Vj, w, paneldot):
+    """Classical Gram-Schmidt twice: w orthogonalised against the rows
+    of ``Vj``; returns (w, h) with h the projection coefficients."""
+    h = paneldot(Vj, w)
+    w = w - _mm(Vj.T, h)
+    h2 = paneldot(Vj, w)
+    return w - _mm(Vj.T, h2), h + h2
 
 
 @reorder_hoisted
@@ -62,16 +79,14 @@ def gmres(
     ``s_step > 1`` switches to the communication-avoiding (s-step)
     Arnoldi: blocks of ``s_step`` scaled matrix powers orthogonalised
     TOGETHER (BCGS2 + CholQR2), so the basis panel is read twice per
-    BLOCK instead of four times per STEP.  The panel passes are the
-    measured cost of a GMRES step at scale (2x508 us of 1669 us at
-    n=2M/restart=32 on TPU v5e — benchmarks round 5), so s_step=4 cuts
-    the step cost ~3-4x.  Trade-offs: the residual estimate updates at
+    BLOCK instead of four times per STEP.  The panel passes dominate a
+    GMRES step at scale, so s_step=4 cuts their traffic ~4x.
+    Trade-offs: the residual estimate updates at
     block boundaries (the trace's intermediate slots stay NaN), the
     iteration cap is honored at block granularity (never exceeded;
     the solve may stop up to s-1 matvecs short), and the scaled
     monomial basis mildly worsens orthogonality — CholQR2 + the
-    per-restart true residual keep it honest (measured: same restart
-    trajectories on the bench systems).  ``restart`` is rounded down
+    per-restart true residual keep it honest.  ``restart`` is rounded down
     to a multiple of ``s_step``.
     """
     a = as_operator(a)
@@ -111,9 +126,25 @@ def _gmres_loop(
         return v if precond is None else precond.apply(v)
 
     return gmres_core(
-        matvec, mapply, lambda u, v: jnp.vdot(u, v),
-        lambda V, w: V @ w, b, x0, eps, m, maxiter, record,
+        matvec, mapply, lambda u, v: jnp.vdot(u, v, precision=_HIGHEST),
+        _mm, b, x0, eps, m, maxiter, record,
     )
+
+
+@partial(jax.jit, static_argnums=(2,))
+def arnoldi_basis(a, b, m: int) -> jnp.ndarray:
+    """The (m+1, n) orthonormal Krylov basis one GMRES(m) cycle from
+    x0 = 0 builds for ``a`` (no preconditioner): the same CGS2 step as
+    :func:`gmres_core`, exposed so its orthogonality can be checked."""
+    matvec = matvec_fn(a)
+    n = b.shape[0]
+    V = jnp.zeros((m + 1, n), b.dtype).at[0].set(
+        b / jnp.sqrt(jnp.vdot(b, b, precision=_HIGHEST))
+    )
+    for j in range(m):
+        w, _ = _cgs2(V[: j + 1], matvec(V[j]), _mm)
+        V = V.at[j + 1].set(w / jnp.sqrt(jnp.vdot(w, w, precision=_HIGHEST)))
+    return V
 
 
 def gmres_core(
@@ -155,24 +186,19 @@ def gmres_core(
         # BLOCKED Arnoldi: steps run in blocks of 8; within block bk the
         # CGS2 panel contractions use the STATIC slice V[:8*(bk+1)]
         # instead of the whole (m+1, n) panel under a mask.  The panel
-        # matmuls dominate a GMRES step at scale (4 full-panel passes =
-        # ~1 GB/step at n=2M/m=32, measured 2.6 ms/step) and rows > j
-        # are zeros, so the masked form paid ~2x the average traffic for
-        # nothing; the quantized slice stays exact.  The block outer
-        # loop is the unroll granularity: ceil(m/8) compiled step bodies
-        # (a fully per-j unroll compiled 30-45x slower than the round-3
-        # masked fori_loop; this shape compiles ~4x, runs ~2x faster).
+        # passes dominate a GMRES step at scale (4 full-panel passes =
+        # ~1 GB/step at n=2M/m=32) and rows > j are zeros, so the masked
+        # form paid ~2x the average traffic for nothing; the quantized
+        # slice stays exact.  The block outer loop is the unroll
+        # granularity: ceil(m/8) compiled step bodies (a fully per-j
+        # unroll compiles far slower).
         def make_step(nrows: int):
             def step(j, carry):
                 V, H, cs, sn, g, rest, steps, done, trace = carry
                 frozen = done | (j >= cap)
                 w = matvec(mapply(V[j]))
                 Vj = jax.lax.slice(V, (0, 0), (nrows, n))
-                h_low = paneldot(Vj, w)
-                w = w - Vj.T @ h_low
-                h2 = paneldot(Vj, w)
-                w = w - Vj.T @ h2
-                h_low = h_low + h2
+                w, h_low = _cgs2(Vj, w, paneldot)
                 hj1 = jnp.sqrt(dotfn(w, w))
                 V = V.at[j + 1].set(
                     jnp.where(
@@ -234,7 +260,7 @@ def gmres_core(
         V, H, cs, sn, g, rest, steps, done, trace = carry
         # y = R^{-1} g over the rotated (upper-triangular) H
         y = jax.scipy.linalg.solve_triangular(H[:m, :], g[:m], lower=False)
-        x = x + mapply(V[:m].T @ y)
+        x = x + mapply(_mm(V[:m].T, y))
         return x, rest, steps, trace
 
     def cond(carry):
@@ -245,9 +271,9 @@ def gmres_core(
         x, _, k, status, trace = carry
         x, res, steps, trace = cycle(x, k, trace)
         k = k + steps
-        # VERIFIED convergence (library-wide contract, round 5): the
-        # running estimate drifts from ||b - A x|| in f32 at scale
-        # (measured 3.6x optimistic at n=2M) — one extra matvec per
+        # VERIFIED convergence (library-wide contract): the running
+        # estimate drifts from ||b - A x|| in f32 at scale (3.6x
+        # optimistic at n=2M) — one extra matvec per
         # cycle confirms a claim or sends the loop into another
         # restart; residual_norm always reports the TRUE norm.
         r_t = b - matvec(x)
@@ -326,15 +352,15 @@ def _ca_gmres_loop(
         """y, ||g - Hsub y|| via QR (Hsub (rows, cols), rows > cols)."""
         q, rr = jnp.linalg.qr(Hsub, mode="reduced")
         y = jax.scipy.linalg.solve_triangular(
-            rr, q.T @ g, lower=False
+            rr, _mm(q.T, g), lower=False
         )
-        resid = g - Hsub @ y
+        resid = g - _mm(Hsub, y)
         return y, jnp.sqrt(jnp.sum(resid * resid))
 
     def cycle(x, k0, trace):
         budget = maxiter - k0
         r = b - matvec(x)
-        beta = jnp.sqrt(jnp.vdot(r, r))
+        beta = jnp.sqrt(jnp.vdot(r, r, precision=_HIGHEST))
         safe_beta = jnp.maximum(beta, tiny)
         V = jnp.zeros((m + 1, n), dtype).at[0].set(r / safe_beta)
         H = jnp.zeros((m + 1, m), dtype)
@@ -362,14 +388,14 @@ def _ca_gmres_loop(
             zprev = None
             for _ in range(s):
                 t = matvec(mapply(zp))
-                h_d = jnp.vdot(zp, t)
+                h_d = jnp.vdot(zp, t, precision=_HIGHEST)
                 t = t - h_d * zp
                 if zprev is not None:
-                    h_o = jnp.vdot(zprev, t)
+                    h_o = jnp.vdot(zprev, t, precision=_HIGHEST)
                     t = t - h_o * zprev
                 else:
                     h_o = jnp.zeros((), dtype)
-                bk = jnp.sqrt(jnp.vdot(t, t))
+                bk = jnp.sqrt(jnp.vdot(t, t, precision=_HIGHEST))
                 znew = t / jnp.maximum(bk, tiny)
                 zs.append(znew)
                 bcoef.append((h_o, h_d, bk))
@@ -378,15 +404,15 @@ def _ca_gmres_loop(
 
             # BCGS2 against the live basis (the two panel passes)
             Vl = jax.lax.slice(V, (0, 0), (live, n))
-            C1 = Vl @ Z.T                      # (live, s)
-            Zp = Z - C1.T @ Vl
-            C2 = Vl @ Zp.T
-            Zp = Zp - C2.T @ Vl
+            C1 = _mm(Vl, Z.T)                  # (live, s)
+            Zp = Z - _mm(C1.T, Vl)
+            C2 = _mm(Vl, Zp.T)
+            Zp = Zp - _mm(C2.T, Vl)
             C = C1 + C2
 
             # CholQR2 inside the block
             def cholqr(Y):
-                G = Y @ Y.T
+                G = _mm(Y, Y.T)
                 ridge = 10.0 * mach * (jnp.trace(G) / s + tiny)
                 L = jnp.linalg.cholesky(
                     G + ridge * jnp.eye(s, dtype=dtype)
@@ -396,7 +422,7 @@ def _ca_gmres_loop(
 
             Q1, L1 = cholqr(Zp)
             Q, L2 = cholqr(Q1)
-            R = (L1 @ L2).T  # upper: Z' (cols) = Q (cols) R
+            R = _mm(L1, L2).T  # upper: Z' (cols) = Q (cols) R
 
             Qw = jnp.where(run, Q, jax.lax.slice(V, (live, 0), (live + s, n)))
             V = V.at[live: live + s].set(Qw)
@@ -425,7 +451,7 @@ def _ca_gmres_loop(
                     )
                 AVW = AVW.at[:, live - 1].set(az0)
                 AZW = jnp.stack(azw[1:], axis=1)         # (p, s-1)
-                X = AZW - AVW @ C[:, : s - 1]
+                X = AZW - _mm(AVW, C[:, : s - 1])
                 r_top = R[: s - 1, : s - 1]
                 AQW = jax.scipy.linalg.solve_triangular(
                     r_top.T, X.T, lower=True
@@ -454,7 +480,7 @@ def _ca_gmres_loop(
 
         g = jnp.zeros((m + 1,), dtype).at[0].set(beta)
         y, _ = small_ls(H, g)
-        x = x + mapply(V[:m].T @ y)
+        x = x + mapply(_mm(V[:m].T, y))
         return x, est, steps, trace
 
     def cond(carry):
@@ -469,7 +495,7 @@ def _ca_gmres_loop(
         # further than the Givens one (measured 3.6x at n=2M/f32);
         # see gmres_core.body
         r_t = b - matvec(x)
-        true_n = jnp.sqrt(jnp.vdot(r_t, r_t))
+        true_n = jnp.sqrt(jnp.vdot(r_t, r_t, precision=_HIGHEST))
         status = jnp.where(
             ~jnp.isfinite(res) | ~jnp.isfinite(true_n),
             SolverStatus.DIVERGED,
@@ -482,7 +508,7 @@ def _ca_gmres_loop(
         return x, true_n, k, status, trace
 
     r0 = b - matvec(x0)
-    res0 = jnp.sqrt(jnp.vdot(r0, r0))
+    res0 = jnp.sqrt(jnp.vdot(r0, r0, precision=_HIGHEST))
     status0 = jnp.where(res0 <= eps, SolverStatus.SUCCESS, RUNNING).astype(
         jnp.int32
     )

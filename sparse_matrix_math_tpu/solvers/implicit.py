@@ -1,6 +1,6 @@
 """Differentiable solves via implicit differentiation.
 
-A TPU/JAX-native capability with no reference equivalent: the solution
+A JAX-native capability with no reference equivalent: the solution
 ``x = A^{-1} b`` of an SPD system is made differentiable with
 ``jax.custom_vjp`` using the implicit function theorem instead of
 unrolling the Krylov loop (which ``lax.while_loop`` cannot reverse-

@@ -3,24 +3,23 @@
 ``cg_df64`` (solvers/df64.py) reaches the reference's 1e-8/f64 accuracy
 bar (include/sparse_matrix_math.h:2316 templated over ``double``;
 test/include/test_common.h:30-38) by running the ENTIRE CG recurrence in
-double-word f32 — measured ~9.5x the per-iteration cost of plain f32 CG
-(docs/BENCH_NOTES.md).  This module gets to the same bar much cheaper
+double-word f32, at several times the per-iteration cost of plain f32
+CG.  This module gets to the same bar much cheaper
 with classical mixed-precision iterative refinement (Wilkinson; the
 modern analysis is Carson & Higham, SIAM J. Sci. Comput. 2018):
 
 * the OUTER loop keeps ``x`` as a double-word (hi, lo) pair and computes
   the TRUE residual ``r = b - A x`` with the double-word operator
-  (~2^-47 unit roundoff — f64-quality residuals on hardware with no f64);
+  (~2^-47 unit roundoff — f64-quality residuals with f32 storage);
 * each round solves the correction system ``A d = r / ||r||`` with a
   lean **f32** CG on the hi-rounded operator — the fast path the rest of
-  the package already optimises (padded Pallas DIA kernels, W-SELL, any
-  preconditioner) — to a fixed RELATIVE reduction ``inner_rho``;
+  the package already optimises (DIA, stencil, any preconditioner) — to
+  a fixed RELATIVE reduction ``inner_rho``;
 * ``x <- x (+df) ||r|| d``; convergence is judged ONLY on the
   double-word true residual.
 
 Why this sidesteps the f32 floor: a single f32 solve stalls when its
-residual reaches ~u_f32 * ||A|| * ||x|| ABSOLUTE (measured 2.4e-4 at
-n=2M on the bench Poisson).  The refinement rounds each solve a
+residual reaches ~u_f32 * ||A|| * ||x|| ABSOLUTE.  The refinement rounds each solve a
 freshly-scaled unit-norm system, so the inner solve only ever needs a
 modest relative reduction, which f32 delivers at any outer residual
 level; accumulation happens in the double-word ``x``.  Per-round
@@ -30,20 +29,17 @@ problem class.  The stall guard below reports the floor honestly when
 ``kappa`` is large enough to bite.
 
 The whole recursion — outer refinement AND inner CG — is one jitted
-nest of ``lax.while_loop``s: zero host syncs, TPU-idiomatic control
-flow.  On TPU with a stencil (DIA) operator the inner solve runs in the
-padded Pallas domain (ops/pallas_spmv.py), lifted/dropped once per
-round.
+nest of ``lax.while_loop``s: zero host syncs.  With a grid-stencil
+operator the inner solve keeps its carries in the grid layout, lifted
+and dropped once per round.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..formats.dia import DIAMatrix
 from ..formats.ell import ELLMatrix
@@ -195,49 +191,25 @@ _INNER = {"cg": _inner_cg, "bicgstab": _inner_bicgstab}
 
 @partial(
     jax.jit,
-    static_argnames=("maxiter", "max_outer", "use_padded", "pre_kind",
-                     "inner_kind", "use_df_pallas", "round_cap",
-                     "interpret"),
+    static_argnames=("maxiter", "max_outer", "pre_kind", "inner_kind",
+                     "round_cap"),
 )
 def _ir_jit(
-    a_df, a_in, pdia, pre, b, x0, eps2, rho2,
-    maxiter: int, max_outer: int, use_padded: bool, pre_kind: str,
+    a_df, a_in, pre, b, x0, eps2, rho2,
+    maxiter: int, max_outer: int, pre_kind: str,
     inner_kind: str = "cg",
-    use_df_pallas: bool = True,
     round_cap: int = 0,
-    interpret: bool = False,
 ):
-    from ..ops.df32 import df_matvec_fn
-
-    # hoisted once per solve; use_df_pallas=False is the retry path when
-    # Mosaic refuses the df kernels (the old retry still re-entered the
-    # same kernel through rmult_df and could never succeed)
-    df_mv = df_matvec_fn(a_df, use_df_pallas)
     from ..formats.stencil import GridStencilMatrix
 
-    if (
-        isinstance(a_in, GridStencilMatrix)
-        and not use_padded
-        and pre_kind in ("none", "jacobi")
-    ):
+    df_mv = a_df.rmult_df
+    if isinstance(a_in, GridStencilMatrix) and pre_kind in ("none", "jacobi"):
         # grid-resident inner: matrix-free stencil apply with the inner
         # carries kept in the grid layout (solvers/_stencil.py twin).
         # Object preconditioners apply to FLAT vectors, so they stay on
         # the generic path below.
         matvec = a_in.apply_grid
         lift, drop = a_in.to_grid, a_in.from_grid
-    elif use_padded:
-        from ..ops.pallas_spmv import (
-            dia_spmv_padded,
-            dia_spmv_streamed,
-            fits_in_vmem,
-        )
-
-        if fits_in_vmem(pdia.n_total, b[0].dtype):
-            matvec = lambda v: dia_spmv_padded(pdia, v, interpret=interpret)  # noqa: E731
-        else:
-            matvec = lambda v: dia_spmv_streamed(pdia, v, interpret=interpret)  # noqa: E731
-        lift, drop = pdia.to_padded, pdia.from_padded
     else:
         from ..ops.spmv import matvec_fn
 
@@ -245,23 +217,12 @@ def _ir_jit(
         lift = drop = lambda v: v  # noqa: E731
 
     if pre_kind == "jacobi":
-        invp = lift(pre)  # zero padding keeps z padding zero
+        invp = lift(pre)
         apply_ = lambda r: r * invp  # noqa: E731
-    elif pre_kind == "sgs":
-        # PaddedSGS with geometry matching pdia: the truncated-sweep
-        # apply runs entirely in the padded domain (one fused Pallas
-        # call per apply — the same path solvers/_padded.py uses), so
-        # the inner BiCGStab/CG keeps its fast layout.  This is what
-        # makes the refinement usable on nonsymmetric stencil systems:
-        # unpreconditioned f32 BiCGStab cannot deliver even the 1e-2
-        # per-round reduction at n=2M (measured, BENCH_NOTES round 4).
-        from ..ops.pallas_trisweep import sgs_apply_fused
-
-        apply_ = lambda r: sgs_apply_fused(pre, r, interpret=interpret)  # noqa: E731
     elif pre_kind == "obj":
         # pin the apply output to the inner f32 domain: preconditioner
-        # objects built from f64 host data promote on the x64 CPU
-        # backend, which would widen the inner while_loop carry
+        # objects built from f64 host data promote under x64, which
+        # would widen the inner while_loop carry
         apply_ = lambda r: pre.apply(r).astype(r.dtype)  # noqa: E731
     else:
         apply_ = None
@@ -288,13 +249,13 @@ def ir_df_core(
     with a double-word (halo-exchanged, tree-combined) SpMV/norm,
     ``matvec``/``apply_``/``dotfn`` the f32 inner machinery (psum dots
     when sharded), ``lift``/``drop`` the inner-domain layout hops
-    (padded Pallas domain single-chip, identity sharded).
+    (grid layout for stencils, identity otherwise).
 
     ``round_cap`` (0 = no cap) bounds the inner iterations per
     refinement round: frequent true-residual corrections bound how far
     an f32 inner recurrence can drift before it is checked — at n=2M an
     UNCAPPED inner BiCGStab explodes to a 1e15 recurrence inside one
-    round on the convection-diffusion bench system (round 4); capped at
+    round on the convection-diffusion bench system; capped at
     256 the same solve converges.  Costs one double-word SpMV per cap
     hit (~3 f32 SpMVs, ~1% at cap 256).
 
@@ -331,7 +292,7 @@ def ir_df_core(
         # a round that made the TRUE residual worse (an f32 inner
         # breakdown slipping past its own recurrence guards) is
         # REVERTED: the returned iterate is always the best seen, never
-        # a corrupted tail (round 4 — an exploded inner round used to
+        # a corrupted tail (an exploded inner round used to
         # hand back x with ||b-Ax|| ~ 1e15)
         worse = ~(rn2_new <= rn2) | ~jnp.isfinite(rn2_new)
         x_hi = jnp.where(worse, x_hi, nx_hi)
@@ -399,16 +360,12 @@ def _ir_front(
 
     a_in = inner_matrix if inner_matrix is not None else hi_operator(a_df)
 
-    from ..precond.padded_sgs import PaddedSGS
-
     pre, pre_kind = None, "none"
     if preconditioner is not None:
         from ..precond.preconditioners import JacobiPreconditioner
 
         if isinstance(preconditioner, JacobiPreconditioner):
             pre, pre_kind = preconditioner.inv_diag, "jacobi"
-        elif isinstance(preconditioner, PaddedSGS):
-            pre, pre_kind = preconditioner, "sgs"
         elif hasattr(preconditioner, "apply"):
             pre, pre_kind = preconditioner, "obj"
         else:
@@ -417,62 +374,16 @@ def _ir_front(
                 f"{type(preconditioner).__name__}"
             )
 
-    pdia, use_padded = None, False
-    if (
-        jax.default_backend() == "tpu"
-        and isinstance(a_in, DIAMatrix)
-        and pre_kind in ("none", "jacobi", "sgs")
-    ):
-        from ..ops.pallas_spmv import pad_dia
-
-        try:
-            rb = pre.rows_blk if pre_kind == "sgs" else None
-            pdia = pad_dia(a_in, rows_blk=rb)
-            use_padded = True
-        except Exception:  # pragma: no cover - geometry refusals
-            pdia, use_padded = None, False
-    if pre_kind == "sgs" and (
-        not use_padded
-        or pre.shape != a_in.shape
-        or pre.lead != pdia.lblk * pdia.rows_blk * 128
-    ):
-        # layout mismatch (or no padded path): PaddedSGS still works
-        # through its generic pad/apply/unpad entry point — but that
-        # entry takes UNPADDED vectors, so the inner solve must run in
-        # the generic domain too
-        pre_kind = "obj"
-        pdia, use_padded = None, False
-
     # per-round inner budget: uncapped for CG (its recurrence is stable
-    # at bench scale); 256 for BiCGStab, whose f32 recurrence can
-    # explode inside a long round (see ir_df_core)
+    # at scale); 256 for BiCGStab, whose f32 recurrence can explode
+    # inside a long round (see ir_df_core)
     if round_cap is None:
         round_cap = 0 if inner_kind == "cg" else 256
 
-    def run(use_padded_, pdia_, use_df_pallas_=True):
-        return _ir_jit(
-            a_df, a_in, pdia_, pre, b, x0, eps2, rho2,
-            maxiter, int(max_outer), use_padded_, pre_kind, inner_kind,
-            use_df_pallas_, int(round_cap),
-        )
-
-    # the retry only exists for Mosaic compile refusals — when no Pallas
-    # kernel is in play (CPU backend, ELL df operator and no padded
-    # inner) a failure is a genuine user error and must propagate
-    # directly, not re-run under a misleading fallback warning
-    pallas_possible = use_padded or (
-        jax.default_backend() == "tpu" and isinstance(a_df, DfDiaMatrix)
+    out = _ir_jit(
+        a_df, a_in, pre, b, x0, eps2, rho2,
+        maxiter, int(max_outer), pre_kind, inner_kind, int(round_cap),
     )
-    if not pallas_possible:
-        out = run(False, None)
-    else:
-        try:
-            out = run(use_padded, pdia if use_padded else None)
-        except Exception as e:  # Mosaic compile refusal -> XLA everywhere
-            from ..ops.spmv import _warn_pallas_fallback
-
-            _warn_pallas_fallback(e)
-            out = run(False, None, use_df_pallas_=False)
     x_hi, x_lo, rn2, total, outer, status = out
     return DfSolveResult(
         x_hi=x_hi, x_lo=x_lo, status=status,
@@ -500,9 +411,7 @@ def cg_ir_df64(
     double contract, include/sparse_matrix_math.h:2316 + 1e-8 tolerances
     test/include/test_common.h:30-38), but the per-iteration work is a
     plain f32 CG step: only the once-per-round true residual runs in
-    double-word arithmetic.  Measured on the 10M-nnz Poisson bench
-    system this is several times faster than ``cg_df64`` to the same
-    1e-8 true residual (docs/BENCH_NOTES.md, round 3).
+    double-word arithmetic.
 
     Args:
       a: ``DfDiaMatrix`` / ``DfEllMatrix`` (keeps the operator's f64
@@ -518,9 +427,9 @@ def cg_ir_df64(
       epsilon: L2 threshold on the double-word TRUE residual
         ``||b - A x||``.
       preconditioner: inner-solve preconditioner — a
-        ``JacobiPreconditioner`` (runs in the padded Pallas domain on
-        TPU) or any object with ``apply(r) -> z`` (e.g.
-        ``PoissonMultigrid``; generic domain).
+        ``JacobiPreconditioner`` (applied in the grid layout for
+        stencils) or any object with ``apply(r) -> z`` (e.g.
+        ``PoissonMultigrid``, a DIA-built ``SGSPreconditioner``).
       inner_rho: relative residual reduction each inner solve targets
         (default 1e-2).  Smaller = fewer outer rounds (fewer double-word
         SpMVs), larger = fresher rescaling; anything in [1e-4, 0.5]
@@ -528,8 +437,8 @@ def cg_ir_df64(
       max_outer: cap on refinement rounds (a safety net; the stall guard
         normally fires first).
       inner_matrix: override the inner-solve operator (default: the hi
-        planes of ``a`` as a DIA/ELL matrix).  Pass a bf16-valued or
-        W-SELL operator to trade inner accuracy for speed — the outer
+        planes of ``a`` as a DIA/ELL matrix).  Pass a bf16-valued
+        operator to trade inner accuracy for speed — the outer
         loop corrects any inner operator within O(1/kappa).
     """
     return _ir_front(

@@ -1,20 +1,18 @@
-"""Mixed-precision CG: bf16 matrix stream, f32 vectors, true-residual IR.
+"""Mixed-precision CG: low-precision matrix stream, f32 vectors, true-residual IR.
 
-TPU-native capability with no reference analogue (the reference is
-float/double templated CPU code, include/sparse_matrix_math.h:2316-2398;
-on TPU the interesting split is different).  The padded DIA SpMV is
-HBM-bandwidth-bound — the diagonal planes are ~4x the vector traffic —
-so storing the MATRIX in bfloat16 while every solver vector, dot, and
-axpy stays float32 cuts the dominant stream in half: measured 288 vs
-160 GNNZ/s (1.8x) on the 2M-row Poisson benchmark kernel.
+A capability with no reference analogue (the reference is float/double
+templated CPU code, include/sparse_matrix_math.h:2316-2398).  The DIA
+SpMV is bound by memory bandwidth and the diagonal planes are most of
+its traffic, so storing the MATRIX in bfloat16 while every solver
+vector, dot, and axpy stays float32 cuts the dominant stream in half.
 
 Accuracy contract (what makes this honest for general values):
 
 * The inner CG runs on the bf16-rounded operator ``Ã``.  When the
   matrix values are exactly representable in bfloat16 (all small-integer
   stencils: Poisson, graph Laplacians, ...), ``Ã == A`` bit-for-bit —
-  the VPU multiplies widen bf16 to f32 — and the inner solve IS the f32
-  solve at 1.8x speed.
+  the multiplies widen bf16 to f32 — and the inner solve IS the f32
+  solve.
 * For general values, plain CG on ``Ã`` would stall at the ~2^-8
   relative perturbation floor.  So the outer loop is classical iterative
   refinement: after each inner solve the residual is recomputed with the
@@ -27,7 +25,7 @@ Accuracy contract (what makes this honest for general values):
   stops and reports MAX_ITERATIONS_REACHED rather than looping.
 
 The whole outer+inner recursion is one jitted ``while_loop`` nest: zero
-host syncs, the same dispatch profile as the plain padded CG.
+host syncs.
 """
 
 from __future__ import annotations
@@ -63,9 +61,7 @@ def ir_core(
     ``iterations`` in the result counts INNER iterations (the SpMV-rate
     work); each outer round additionally costs TWO hi-precision SpMVs —
     the entry recompute (which keeps the outer carry vector-free, see
-    cg_core) and the post-round true residual.  Measured net-positive:
-    rounds are few and the vector-free carry keeps the inner loop
-    VMEM-resident (docs/BENCH_NOTES.md round 4).
+    cg_core) and the post-round true residual.
     """
     dot = dotfn
     eps2 = eps * eps
@@ -150,16 +146,13 @@ def mixed_cg(
 ) -> SolveResult:
     """CG with the matrix streamed in ``matrix_dtype`` (default bf16).
 
-    ``inner_rho`` (relative reduction per refinement round) defaults to
-    1/256 — measured best on the 2M-row bench (1/16 restarts too often
-    and inflates iterations ~1.5x; 1/4096 over-solves each round
-    against the recurrence's own drift).
+    ``inner_rho`` is the relative reduction per refinement round.
 
-    ``a`` must be a DIA-format matrix (the padded Pallas kernel is the
-    path whose bandwidth the lower precision halves; convert with
-    ``try_dia_from_csr`` first).  Vectors, reductions, and the reported
-    residual stay in ``b``'s precision — see the module docstring for
-    the accuracy contract.
+    ``a`` must be a DIA-format matrix (the diagonal-plane stream is
+    what the lower precision halves; convert with ``try_dia_from_csr``
+    first).  Vectors, reductions, and the reported residual stay in
+    ``b``'s precision — see the module docstring for the accuracy
+    contract.
     """
     if not isinstance(a, DIAMatrix):
         raise ValueError(
@@ -171,77 +164,17 @@ def mixed_cg(
         x0 = jnp.zeros_like(b)
     maxiter = resolve_max_iterations(max_iterations, n)
     eps = jnp.asarray(epsilon, b.dtype)
-    # NOTE (round 5, measured): routing exactly-bf16-representable
-    # matrices to the VERIFIED plain CG core on bf16 storage — skipping
-    # the refinement and its +43% restart iterations — looks like a free
-    # win and LOSES: 0.87x on the 27-point/128^3 system and 0.83x on the
-    # 5-point/2M system at identical iteration counts.  The verified
-    # core's extra outer carries put the bf16 kernel ~2x off its traffic
-    # bound (the same kernel inside the lean refinement inner hits it).
-    # The refinement path below IS the fast bf16 path; see BENCH_NOTES
-    # "bf16 exact-path ablation".
-    interpret = jax.default_backend() != "tpu"
-    try:
-        return _mixed_cg_jit(
-            a, b, x0, eps, maxiter, jnp.dtype(matrix_dtype).name,
-            float(inner_rho), int(max_outer), interpret,
-        )
-    except Exception as e:  # Mosaic/VMEM refusals degrade gracefully,
-        # matching rmult's contract (ops/spmv.py:_warn_pallas_fallback);
-        # the XLA shifted-slice SpMV still halves the dominant diagonal
-        # stream with matrix_dtype storage
-        from ..ops.spmv import _warn_pallas_fallback
-
-        _warn_pallas_fallback(e)
-        return _mixed_cg_xla_jit(
-            a, b, x0, eps, maxiter, jnp.dtype(matrix_dtype).name,
-            float(inner_rho), int(max_outer),
-        )
-
-
-@partial(jax.jit, static_argnums=(4, 5, 6, 7, 8))
-def _mixed_cg_jit(
-    a, b, x0, eps, maxiter: int, matrix_dtype: str, inner_rho: float,
-    max_outer: int, interpret: bool,
-) -> SolveResult:
-    from ..ops.pallas_spmv import (
-        dia_spmv_padded,
-        dia_spmv_streamed,
-        fits_in_vmem,
-        pad_dia,
+    return _mixed_cg_jit(
+        a, b, x0, eps, maxiter, jnp.dtype(matrix_dtype).name,
+        float(inner_rho), int(max_outer),
     )
-
-    pdia_hi = pad_dia(a)
-    pdia_lo = dataclasses.replace(
-        pdia_hi, diags3=pdia_hi.diags3.astype(matrix_dtype)
-    )
-    resident = fits_in_vmem(pdia_hi.n_total, b.dtype)
-    kernel = dia_spmv_padded if resident else dia_spmv_streamed
-
-    def matvec_hi(v):
-        return kernel(pdia_hi, v, interpret=interpret)
-
-    def matvec_lo(v):
-        return kernel(pdia_lo, v, interpret=interpret)
-
-    def dotfn(u, v):
-        return jnp.sum(u * v)
-
-    res = ir_core(
-        matvec_hi, matvec_lo, dotfn,
-        pdia_hi.to_padded(b), pdia_hi.to_padded(x0), eps, maxiter,
-        inner_rho=inner_rho, max_outer=max_outer,
-    )
-    return dataclasses.replace(res, x=pdia_hi.from_padded(res.x))
 
 
 @partial(jax.jit, static_argnums=(4, 5, 6, 7))
-def _mixed_cg_xla_jit(
+def _mixed_cg_jit(
     a, b, x0, eps, maxiter: int, matrix_dtype: str, inner_rho: float,
     max_outer: int,
 ) -> SolveResult:
-    """Pallas-free variant of :func:`_mixed_cg_jit` — same ir_core
-    recursion, matvecs through the XLA shifted-slice DIA formulation."""
     from ..ops.spmv import dia_rmult_xla
 
     a_lo = dataclasses.replace(a, diags=a.diags.astype(matrix_dtype))

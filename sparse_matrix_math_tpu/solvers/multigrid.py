@@ -1,9 +1,8 @@
 """Geometric multigrid for 2-D/3-D Poisson-class grids (5/7-point).
 
-The reference tops out at Krylov + one-level preconditioners; on a
-machine whose SpMV runs at the HBM roofline, no one-level
-preconditioner can buy back its own apply cost (measured —
-docs/BENCH_NOTES.md).  The operator-aware answer is multigrid: O(1)
+The reference tops out at Krylov + one-level preconditioners, whose
+iteration counts grow with the grid; the operator-aware answer is
+multigrid: O(1)
 V-cycles, each a handful of stencil applies, instead of O(sqrt(kappa))
 Krylov iterations.  This module implements geometric MG for the
 dimensionless 5/7-point Laplacian family that `utils.generate
@@ -12,7 +11,7 @@ Dirichlet) — the benchmark system class:
 
 * vectors live GRID-SHAPED ((ny, nx) or (nz, ny, nx)): every operator
   is a few shifted adds XLA fuses into bandwidth-bound elementwise
-  code.  No gather, no Pallas needed;
+  code.  No gather;
 * coarse operators are GALERKIN (A_c = P^T A P), kept in closed
   tensor-product form: with P = kron of per-axis prolongations and
   A = sum_ax kron(M_1, ..., L_ax, ..., M_d) (1-D tridiagonal factors,
@@ -346,7 +345,11 @@ class PoissonMultigrid:
     def _vcycle(self, b, level: int):
         """One V-cycle for A e = b from a zero initial guess."""
         if level == len(self.dims) - 1:
-            flat = self.coarse_inv @ b.reshape(-1).astype(self.coarse_inv.dtype)
+            # pinned: the default f32 matmul precision may be TF32 on GPUs
+            flat = jnp.matmul(
+                self.coarse_inv, b.reshape(-1).astype(self.coarse_inv.dtype),
+                precision=jax.lax.Precision.HIGHEST,
+            )
             return flat.reshape(b.shape).astype(b.dtype)
         x = self._smooth(level, jnp.zeros_like(b), b, self.nu1)
         r = b - self._apply(level, x)

@@ -14,8 +14,8 @@ standard pipelined-CG caveat, bounded here with PERIODIC RESIDUAL
 REPLACEMENT (Ghysels & Vanroose §4: every ``replace_every`` iterations
 the true residual r = b - A x and the auxiliary recurrences are
 recomputed from scratch inside a lax.cond — ~4 extra SpMVs per period).
-Measured on hardware (round 2, 2M-row f32 Poisson, kappa ~ 4e6):
-without replacement the recurrence drifts to max-error ~7e+2; with
+On a 2M-row f32 Poisson system (kappa ~ 4e6) the recurrence without
+replacement drifts to max-error ~7e+2; with
 replacement the error is bounded at ~6e-2 (period 50 and period 5
 alike) — replacement bounds the drift but the ATTAINABLE ACCURACY of
 the pipelined recurrence in f32 remains above tight tolerances at high
@@ -42,6 +42,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.spmv import as_operator, matvec_fn
+from ..ops.vector import dot
 from .types import harmonize_dtypes, RUNNING, SolveResult, SolverStatus, resolve_max_iterations
 from ..formats.reorder import reorder_hoisted
 
@@ -50,9 +51,7 @@ __all__ = ["cg_pipelined", "cg_pipelined_core"]
 
 def _dot2_local(u1, v1, u2, v2):
     """Two dots, single-device: XLA fuses the reductions."""
-    return jnp.dot(u1, v1, preferred_element_type=u1.dtype), jnp.dot(
-        u2, v2, preferred_element_type=u2.dtype
-    )
+    return dot(u1, v1), dot(u2, v2)
 
 
 @reorder_hoisted

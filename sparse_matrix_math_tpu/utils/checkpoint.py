@@ -6,7 +6,7 @@ include/sparse_matrix_math.h:2319-2320) and matrix persistence via
 ``saveDenseText`` (h:1930-1993).  Here checkpointing is first-class
 (SURVEY §5): solver state (x, iteration count, residual) is an explicit
 carry, so it can be snapshotted to disk at a fixed iteration cadence and
-resumed after preemption — the standard TPU-fleet failure model.
+resumed after preemption — the standard shared-cluster failure model.
 
 CSR matrices snapshot to .npz (:func:`save_csr_npz` /
 :func:`load_csr_npz`) — a fast binary complement to the reference's

@@ -1,8 +1,8 @@
 """Test/benchmark matrix generators.
 
 The reference ships static .mtx assets (test/assets/: small SPD
-structural matrices + sherman1); for a self-contained TPU framework we
-also generate the standard model problems programmatically:
+structural matrices + sherman1); for a self-contained library we also
+generate the standard model problems programmatically:
 
 * 2-D / 3-D Poisson finite-difference stencils (5-point / 7-point) —
   SPD; the benchmark configs in BASELINE.json (configs 4-5) use these.
@@ -20,7 +20,7 @@ from ..formats.triplet import coo_from_arrays
 
 __all__ = [
     "poisson_2d", "poisson_3d", "poisson_3d_27pt", "random_spd_csr",
-    "laplace_1d", "laplace_3d_jittered", "sherman1_tiled",
+    "laplace_1d", "laplace_3d_jittered", "reservoir_3d",
     "uniform_random_csr", "convection_diffusion_2d",
 ]
 
@@ -239,7 +239,7 @@ def laplace_3d_jittered(
     """7-point 3-D Laplacian whose off-diagonal COLUMN indices are
     randomly jittered by up to ``jitter`` — a "banded-broken random"
     pattern: the band locality survives but no diagonal structure does
-    (DIA extraction fails; the W-SELL general format is the fast path).
+    (DIA extraction fails, so it runs on the general CSR/ELL paths).
     The benchmark matrix class for unstructured-SpMV measurements.
 
     ``symmetric=True`` returns (A + A^T)/2 — same unstructured pattern
@@ -251,8 +251,7 @@ def laplace_3d_jittered(
     Laplacian), which f32 Krylov cannot solve to tight tolerances; a
     positive shift bounds the spectrum away from zero and makes the
     system genuinely solvable.  Only diagonal VALUES change — the
-    sparsity pattern, and therefore every pattern-derived layout
-    (W-SELL slots, windows, slot_ratio), is identical to shift=0."""
+    sparsity pattern is identical to shift=0."""
     n = m ** 3
     i = np.arange(n)
     iz, iy, ix = i // (m * m), (i // m) % m, i % m
@@ -284,78 +283,62 @@ def laplace_3d_jittered(
     uniq = np.ones(key.shape[0], bool)
     uniq[1:] = key[1:] != key[:-1]
     grp = np.cumsum(uniq) - 1
-    v_sum = np.zeros(int(grp[-1]) + 1)
-    np.add.at(v_sum, grp, v)
+    v_sum = np.bincount(grp, weights=v)
     return _csr_from_sorted_host(r[uniq], c[uniq], v_sum.astype(dtype), (n, n))
 
 
-def sherman1_tiled(
-    copies: int, seed: int = 0, dtype=np.float64, mtx_path: str = None,
-    jitter: bool = True,
+def reservoir_3d(
+    m: int, seed: int = 0, sigma: float = 1.0, peclet: float = 1.0,
+    jitter: bool = False, dtype=np.float64,
 ) -> CSRMatrix:
-    """'sherman1-class scaled up': block-diagonal copies of the sherman1
-    pattern with per-copy random column jitter — an oil-reservoir-style
-    unstructured pattern at benchmark scale.
+    """Seeded NONSYMMETRIC reservoir-class system on an m^3 grid.
 
-    ``jitter=False`` keeps every copy's VALUES on sherman1's exact
-    pattern (the 1000-row blocks still drift in phase against any
-    1024-aligned layout window, so layout work varies per copy).  Use it
-    when the values must stay consistent with the pattern: jittered
-    values sit in "wrong" columns, and elimination-based factorizations
-    (ILU0) hit data-dependent zero pivots on that (measured: row 239 of
-    the first jittered copy).
+    A 7-point finite-volume operator: diffusion through faces whose
+    transmissibility is the harmonic mean of a log-normal permeability
+    field (``sigma`` is the log standard deviation — heterogeneous
+    coefficients), plus first-order upwind convection by a random face
+    flux of magnitude ``peclet`` times the face transmissibility, plus a
+    small accumulation term on the diagonal.  Column-diagonally dominant
+    M-matrix, so it is nonsingular and ILU(0)/SGS apply.
 
-    ``mtx_path`` locates the seed matrix; defaults to the
-    ``SMM_SHERMAN1_MTX`` environment variable or this build environment's
-    reference checkout, and raises a clear error when neither exists.
+    ``jitter=True`` moves each off-diagonal entry's column by up to +-2
+    (diagonal kept), an unstructured variant whose values no longer sit
+    on the pattern they were computed for — elimination-based
+    factorizations may then meet data-dependent zero pivots.
     """
-    import os
-
-    from ..io import load_matrix_csr
-
-    if mtx_path is None:
-        mtx_path = os.environ.get(
-            "SMM_SHERMAN1_MTX",
-            "/root/reference/test/assets/sherman1_1000_1000_2375.mtx",
-        )
-    if not os.path.exists(mtx_path):
-        raise FileNotFoundError(
-            f"sherman1 seed matrix not found at {mtx_path!r}; pass "
-            "mtx_path= or set SMM_SHERMAN1_MTX"
-        )
-    a = load_matrix_csr(mtx_path)
-    r0 = np.asarray(a.row_ids, np.int64)
-    c0 = np.asarray(a.indices, np.int64)
-    v0 = np.asarray(a.data)
-    nb = a.shape[0]
-    n = nb * copies
+    n = m ** 3
     rng = np.random.default_rng(seed)
-    diag0 = c0 == r0
-    rs, cs, vs = [], [], []
-    for k in range(copies):
-        if jitter:
-            c = np.clip(c0 + rng.integers(-2, 3, c0.shape[0]), 0, nb - 1)
-            # keep diagonal entries in place: the jitter varies the OFF-
-            # diagonal pattern per copy, but factorization-based
-            # preconditioners (ILU0/IC0) and the reference's SGS all
-            # require a full diagonal (h:1666-1694, h:1741-1746)
-            c = np.where(diag0, c0, c)
-        else:
-            c = c0
-        rs.append(r0 + k * nb)
-        cs.append(c + k * nb)
-        vs.append(v0)
-    r = np.concatenate(rs)
-    c = np.concatenate(cs)
-    v = np.concatenate(vs)
+    perm = np.exp(sigma * rng.standard_normal(n))
+    i = np.arange(n, dtype=np.int64)
+    coords = (i // (m * m), (i // m) % m, i % m)
+    rows, cols, vals = [], [], []
+    diag = np.zeros(n)
+    for ax, stride in enumerate((m * m, m, 1)):
+        lo = i[coords[ax] < m - 1]
+        hi = lo + stride
+        t = 2.0 * perm[lo] * perm[hi] / (perm[lo] + perm[hi])
+        q = peclet * t * rng.uniform(-1.0, 1.0, lo.shape[0])
+        out_lo = np.maximum(q, 0.0)   # flux lo -> hi, upwinded at lo
+        out_hi = np.maximum(-q, 0.0)  # flux hi -> lo, upwinded at hi
+        np.add.at(diag, lo, t + out_lo)
+        np.add.at(diag, hi, t + out_hi)
+        rows += [lo, hi]
+        cols += [hi, lo]
+        vals += [-(t + out_hi), -(t + out_lo)]
+    diag += 1e-2 * float(np.mean(diag))
+    r = np.concatenate(rows + [i])
+    c = np.concatenate(cols + [i])
+    v = np.concatenate(vals + [diag])
+    if jitter:
+        cj = np.clip(c + rng.integers(-2, 3, r.shape[0]), 0, n - 1)
+        c = np.where((r != c) & (cj != r), cj, c)
     key = r * np.int64(n) + c
     order = np.argsort(key, kind="stable")
     key, r, c, v = key[order], r[order], c[order], v[order]
     uniq = np.ones(key.shape[0], bool)
     uniq[1:] = key[1:] != key[:-1]
     grp = np.cumsum(uniq) - 1
-    v_sum = np.zeros(int(grp[-1]) + 1)
-    np.add.at(v_sum, grp, v)
+    v_sum = np.bincount(grp, weights=v)
     return _csr_from_sorted_host(r[uniq], c[uniq], v_sum.astype(dtype), (n, n))
 
 
@@ -384,6 +367,5 @@ def uniform_random_csr(
     uniq = np.ones(key.shape[0], bool)
     uniq[1:] = key[1:] != key[:-1]
     grp = np.cumsum(uniq) - 1
-    v_sum = np.zeros(int(grp[-1]) + 1)
-    np.add.at(v_sum, grp, v)
+    v_sum = np.bincount(grp, weights=v)
     return _csr_from_sorted_host(r[uniq], c[uniq], v_sum.astype(dtype), (n, n))

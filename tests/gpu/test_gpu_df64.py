@@ -1,30 +1,26 @@
-"""Real-TPU df64 (double-word f32) tests — run manually on a chip:
+"""Card tests for the double-word (df64) arithmetic and solvers.
 
-    SMM_TPU_TESTS=1 python -m pytest tests/tpu -q --no-header
+    SMM_GPU_TESTS=1 python -m pytest -m gpu tests/gpu -q
 
-The CPU suite routes the EFT primitives through native f64
-(ops/df32.py `_via_f64`); only here does the pure-f32 Dekker/Knuth
-path — the one production TPU users run — get exercised end-to-end.
-The first test IS the contraction probe: if a backend change ever
-starts emitting FMA inside the fusions, it fails loudly.
+The suite runs with x64 enabled, so the error-free transforms route
+through one native float64 operation and an exact re-split
+(ops/df32.py ``_via_f64``); these tests check that route on the card,
+inside fused loop bodies included.
 """
 
 import numpy as np
 import pytest
 
-jax = pytest.importorskip("jax")
+import jax
+import jax.numpy as jnp
 
-pytestmark = pytest.mark.skipif(
-    jax.default_backend() != "tpu", reason="needs a real TPU backend"
-)
+pytestmark = [pytest.mark.gpu, pytest.mark.usefixtures("require_gpu")]
 
 
-def test_eft_exactness_on_hardware():
-    """two_sum/two_prod must be EXACT on the chip (no FMA contraction).
-
-    Oracle: f32 ± f32 and f32 * f32 are exactly representable in host
-    f64, so s + e == a + b and p + e == a * b must hold bit-for-bit."""
-    import jax.numpy as jnp
+def test_eft_exactness():
+    """two_sum/two_prod are EXACT: f32 +- f32 and f32 * f32 are exactly
+    representable in host f64, so s + e == a + b and p + e == a * b
+    bit-for-bit."""
     from sparse_matrix_math_tpu.ops.df32 import two_prod, two_sum
 
     rng = np.random.default_rng(0)
@@ -43,9 +39,8 @@ def test_eft_exactness_on_hardware():
 
 
 def test_eft_exactness_inside_loop_fusion():
-    """The same exactness INSIDE a fused while_loop body (the context
-    where XLA:CPU demonstrably breaks it — see ops/df32.py docstring)."""
-    import jax.numpy as jnp
+    """The same exactness INSIDE a fused loop body, where an LLVM-based
+    backend may contract mul+add pairs into FMAs."""
     from sparse_matrix_math_tpu.ops.df32 import df_add, two_prod
 
     rng = np.random.default_rng(1)
@@ -67,7 +62,7 @@ def test_eft_exactness_inside_loop_fusion():
     assert np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)) < 1e-13
 
 
-def test_cg_df64_poisson_1e10_on_chip():
+def test_cg_df64_poisson_1e10():
     """eps=1e-10 — far past plain f32's reach — verified on the host in
     f64 against the original operator."""
     from sparse_matrix_math_tpu import SolverStatus, cg_df64
@@ -80,27 +75,20 @@ def test_cg_df64_poisson_1e10_on_chip():
     indptr = np.asarray(a.indptr, np.int64)
     n = a.shape[0]
     x_true = np.random.default_rng(0).standard_normal(n)
-    b = np.zeros(n)
-    for r in range(n):
-        s, e = indptr[r], indptr[r + 1]
-        b[r] = np.dot(data[s:e], x_true[indices[s:e]])
+    b = np.add.reduceat(data * x_true[indices], indptr[:-1])
     dfa = DfEllMatrix.from_host_csr(data, indices, indptr, a.shape)
     res = cg_df64(dfa, b, epsilon=1e-10)
     assert res.status_enum() == SolverStatus.SUCCESS, res
     x = res.x_f64()
-    tr = np.zeros(n)
-    for r in range(n):
-        s, e = indptr[r], indptr[r + 1]
-        tr[r] = b[r] - np.dot(data[s:e], x[indices[s:e]])
+    tr = b - np.add.reduceat(data * x[indices], indptr[:-1])
     assert np.linalg.norm(tr) < 1e-9, np.linalg.norm(tr)
     assert np.linalg.norm(x - x_true) / np.linalg.norm(x_true) < 1e-10
 
 
-def test_df_dia_fast_path_on_chip():
+def test_df_dia_matvec():
     """DfDiaMatrix (gather-free shifted reads) vs host f64 oracle."""
-    import jax.numpy as jnp
     from sparse_matrix_math_tpu.ops.df32 import (
-        DfDiaMatrix, df_from_host, df_to_host, df_operator_from_host_csr,
+        DfDiaMatrix, df_from_host, df_operator_from_host_csr, df_to_host,
     )
     from sparse_matrix_math_tpu.utils import poisson_2d
 
@@ -115,3 +103,24 @@ def test_df_dia_fast_path_on_chip():
     got = df_to_host(jax.jit(op.rmult_df)(df_from_host(x64)))
     want = np.add.reduceat(data * x64[indices], indptr[:-1])
     assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-12
+
+
+def test_escalated_stencil_solve_to_1e8():
+    """The f64 contract through solve(): f32 data, epsilon 1e-8,
+    multigrid, escalated to the double-word refinement."""
+    import sparse_matrix_math_tpu as smm
+    from sparse_matrix_math_tpu.utils.generate import poisson_3d
+
+    a = poisson_3d(24, dtype=np.float32)
+    st = smm.try_grid_stencil_from_csr(a)
+    b = st @ jnp.ones(st.shape[0], jnp.float32)
+    res = smm.solve(st, b, epsilon=1e-8, preconditioner="multigrid")
+    assert isinstance(res, smm.DfSolveResult) and res.success
+    data = np.asarray(a.data, np.float64)
+    indices = np.asarray(a.indices, np.int64)
+    indptr = np.asarray(a.indptr, np.int64)
+    x = res.x_f64()
+    r = np.asarray(b, np.float64) - np.add.reduceat(
+        data * x[indices], indptr[:-1]
+    )
+    assert np.linalg.norm(r) <= 1e-8

@@ -1,8 +1,8 @@
 """Multi-RHS (batched) solves: solvers/block.py.
 
 The reference has no multi-RHS capability (one RHS per call,
-include/sparse_matrix_math.h:2316-2320) — this is TPU-native surplus:
-one SpMM per iteration feeds every column.  Correctness bar: column j of
+include/sparse_matrix_math.h:2316-2320) — this is an addition: one
+SpMM per iteration feeds every column.  Correctness bar: column j of
 cg_multi must match an independent cg run on (a, B[:, j]).
 """
 
@@ -90,14 +90,16 @@ class TestCGMulti:
 
 
 class TestCGMultiOverFormats:
-    def test_wsell_operator_matches_csr(self):
-        """Multi-RHS CG over a W-SELL operator runs the SpMM kernel
-        (one plane stream for ALL columns) and must match the CSR run
-        column-for-column."""
-        from sparse_matrix_math_tpu.formats.wsell import wsell_from_csr
-
+    @pytest.mark.parametrize("fmt", ["ell", "hyb", "reordered"])
+    def test_general_operator_matches_csr(self, fmt):
+        """Multi-RHS CG over the general-pattern operators (one SpMM
+        feeds all columns) must match the CSR run column-for-column."""
         a = poisson_2d(16, dtype=np.float32)
-        ws = wsell_from_csr(a)
+        op = {
+            "ell": lambda: smm.ell_from_csr(a),
+            "hyb": lambda: smm.hyb_from_csr(a),
+            "reordered": lambda: smm.reorder_rcm(a),
+        }[fmt]()
         n = a.shape[0]
         B = jnp.asarray(
             np.random.default_rng(3).standard_normal((n, 3)).astype(
@@ -105,7 +107,7 @@ class TestCGMultiOverFormats:
             )
         )
         ref = smm.cg_multi(a, B, epsilon=1e-4)
-        got = smm.cg_multi(ws, B, epsilon=1e-4)
+        got = smm.cg_multi(op, B, epsilon=1e-4)
         for j in range(3):
             assert int(got.status[j]) == int(ref.status[j])
             np.testing.assert_allclose(

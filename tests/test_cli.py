@@ -87,31 +87,17 @@ def test_solve_api_dia_preconditioners():
         solve(dia, b, method="cg", preconditioner="ic0")
 
 
-def test_bench_spmv_includes_wsell(capsys, tmp_path):
+def test_bench_spmv_reports_formats(capsys, tmp_path):
     from sparse_matrix_math_tpu.io import save_dense_text
     from sparse_matrix_math_tpu.utils.generate import poisson_2d
 
     a = poisson_2d(6, dtype=np.float64)
     path = str(tmp_path / "m.smmdt")
     save_dense_text(path, a)
-    rc, out = run_cli(capsys, ["bench-spmv", path, "--iters", "2"])
+    rc, report = run_cli(capsys, ["bench-spmv", path, "--iters", "2"])
     assert rc == 0
-    assert "wsell" in out
-    assert "rsell" not in out  # routed timing is opt-in (--routed)
-
-
-def test_bench_spmv_routed_opt_in(capsys, tmp_path):
-    from sparse_matrix_math_tpu.io import save_dense_text
-    from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-    a = poisson_2d(6, dtype=np.float64)
-    path = str(tmp_path / "m.smmdt")
-    save_dense_text(path, a)
-    rc, report = run_cli(
-        capsys, ["bench-spmv", path, "--iters", "2", "--routed"]
-    )
-    assert rc == 0
-    assert report["rsell"] is None or report["rsell"]["gnnz_per_s"] > 0
+    assert set(report) == {"csr", "dia", "ell"}
+    assert all(report[k]["gnnz_per_s"] > 0 for k in report)
 
 
 import jax.numpy as jnp
@@ -136,8 +122,8 @@ class TestAutoFormat:
         np.testing.assert_allclose(np.asarray(auto.x), 1.0, atol=1e-8)
 
     def test_preconditioner_falls_back_to_csr_source(self):
-        """A pattern that selects W-SELL (or stays CSR) must still build
-        SGS — via the order-preserving CSR-source fallback."""
+        """A pattern that stays CSR must still build SGS from the CSR
+        source."""
         from sparse_matrix_math_tpu.formats import best_format
         from sparse_matrix_math_tpu.formats.dia import DIAMatrix
         from sparse_matrix_math_tpu.solvers.api import solve
@@ -162,12 +148,11 @@ class TestAutoFormat:
         assert int(res.status) == 0
 
     def test_reordered_route_preconditioner_in_permuted_domain(self):
-        """A shuffled mesh routes to RCM+W-SELL; the preconditioner must
-        factor from the PERMUTED matrix (never the unpermuted source)
-        and the solve must match the raw-CSR preconditioned run."""
-        from sparse_matrix_math_tpu.formats import best_format
+        """On an RCM-reordered operator the preconditioner must factor
+        from the PERMUTED matrix (never the unpermuted source) and the
+        solve must match the raw-CSR preconditioned run."""
         from sparse_matrix_math_tpu.formats.reorder import (
-            ReorderedMatrix, permute_csr,
+            permute_csr, reorder_rcm,
         )
         from sparse_matrix_math_tpu.solvers.api import solve
         from sparse_matrix_math_tpu.utils.generate import poisson_2d
@@ -176,12 +161,10 @@ class TestAutoFormat:
         a0 = poisson_2d(48, dtype=np.float64)
         perm = rng.permutation(a0.shape[0])
         a = permute_csr(a0, perm)  # scrambled numbering, same system
-        sel = best_format(a)
-        assert isinstance(sel, ReorderedMatrix)
         b = a @ jnp.ones(a.shape[0], jnp.float64)
         ref = solve(a, b, method="cg", preconditioner="sgs", epsilon=1e-10)
-        got = solve(a, b, method="cg", preconditioner="sgs", epsilon=1e-10,
-                    auto_format=True)
+        got = solve(reorder_rcm(a), b, method="cg", preconditioner="sgs",
+                    epsilon=1e-10)
         assert int(got.status) == 0
         np.testing.assert_allclose(np.asarray(got.x), 1.0, atol=1e-8)
         np.testing.assert_allclose(

@@ -80,7 +80,7 @@ class TestDeflatedCG:
         np.testing.assert_allclose(np.asarray(res.x), 1.0, atol=1e-8)
 
     def test_f32_near_null_mode(self):
-        """The TPU-relevant case: in f32, plain CG on the near-null ring
+        """The f32 case: plain CG on the near-null ring
         system needs ~2x the iterations and loses ~1 digit of solution
         accuracy to the tiny mode; the (stabilised) deflated solve
         converges in roughly the well-conditioned count with a visibly

@@ -1,15 +1,15 @@
 """Double-word f32 ("df64") arithmetic and solver tests.
 
 The reference is templated over ``double`` with a 1e-8 residual
-contract (test/include/test_common.h:30-38); on TPU hardware without
-native f64 the package carries that contract through double-word f32
+contract (test/include/test_common.h:30-38); with f32 storage the
+package carries that contract through double-word f32
 (ops/df32.py, solvers/df64.py).  These tests check the emulation
 against host float64 oracles.
 
 Tolerance note: the double-word algorithms have ~2^-47 unit roundoff.
 XLA:CPU's LLVM pipeline contracts mul+add into FMA inside fusions,
 which perturbs two_prod's error word; measured effect is ~1e-14
-relative on composed ops (docs/DESIGN.md "f64 on hardware").  Bounds
+relative on composed ops (docs/DESIGN.md §13).  Bounds
 below use 1e-12 — loose for both backends, still 4+ orders past f32.
 """
 
@@ -171,7 +171,7 @@ def test_df_ell_empty_rows():
 
 
 def test_df_dia_matches_ell_and_oracle():
-    """DfDiaMatrix (gather-free TPU fast path) must agree with the ELL
+    """DfDiaMatrix (gather-free fast path) must agree with the ELL
     path bit-for-bit-ish and with the f64 oracle."""
     a, data, indices, indptr = _poisson_host(24)
     n = a.shape[0]

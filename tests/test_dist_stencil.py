@@ -76,3 +76,21 @@ def test_solve_matches_single_chip(mesh):
     res = dist_stencil_solve(ds, b, solver="cg", epsilon=1e-11)
     x = np.asarray(collect(res.x, ds))[:n]
     np.testing.assert_allclose(x, np.asarray(ref.x), atol=1e-9)
+
+
+def test_dist_solve_dispatches_stencil(mesh):
+    """dist_solve is the one distributed front door: a DistStencil
+    operand runs the matrix-free path, and preconditioning it is
+    refused."""
+    from sparse_matrix_math_tpu.parallel import dist_solve
+
+    a = poisson_3d(10, dtype=np.float64)
+    ds = distribute_stencil(try_grid_stencil_from_csr(a), mesh)
+    b = np.asarray(a.to_dense()).sum(axis=1)
+    res = dist_solve(ds, b, epsilon=1e-10)
+    assert int(res.status) == SolverStatus.SUCCESS
+    assert res.x.shape == (ds.padded_rows,)
+    assert len(res.x.addressable_shards) == mesh.size
+    np.testing.assert_allclose(collect(res.x, ds), 1.0, atol=1e-8)
+    with pytest.raises(ValueError):
+        dist_solve(ds, b, preconditioner=object())

@@ -1,5 +1,5 @@
 """Differentiable-solve (implicit differentiation) and multi-RHS vmap
-tests — TPU/JAX-native capabilities beyond the reference."""
+tests — JAX-native capabilities beyond the reference."""
 
 import dataclasses
 

@@ -90,21 +90,19 @@ class TestMixedCG:
             solve(dia, b, matrix_dtype="bfloat16", preconditioner="jacobi")
 
 
-def test_solve_bf16_warns_on_narrow_stencil(poisson_dia):
-    """solve(matrix_dtype='bfloat16') on a narrow stencil is a measured
-    loser (BENCH_NOTES round 4: 0.57-0.82x plain f32 CG at matched true
-    accuracy) — the front door must say so instead of silently handing
-    back the slowdown (VERDICT r4 #7)."""
-    from sparse_matrix_math_tpu import PerformanceWarning
+def test_solve_bf16_narrow_stencil_no_warning(poisson_dia):
+    """solve(matrix_dtype='bfloat16') on a narrow stencil runs the bf16
+    diagonal stream silently: whether it pays on a given card is a
+    benchmark question, not a front-door warning."""
+    import warnings
 
     _, dia = poisson_dia
     b = rmult(dia, jnp.ones((dia.shape[0],), jnp.float32))
-    with pytest.warns(PerformanceWarning, match="SLOWER"):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
         res = solve(
             dia, b, method="cg", epsilon=1e-3, matrix_dtype="bfloat16",
             auto_escalate=False,
         )
-    # the path still works — the warning is advisory, not a reroute
-    assert int(res.status) in (
-        SolverStatus.SUCCESS, SolverStatus.MAX_ITERATIONS_REACHED
-    )
+    assert not [w for w in caught if "matrix_dtype" in str(w.message)]
+    assert int(res.status) == SolverStatus.SUCCESS

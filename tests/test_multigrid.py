@@ -1,7 +1,7 @@
 """Geometric multigrid (solvers/multigrid.py).
 
 The reference has no multigrid (its strongest preconditioner is IC(0));
-this is the TPU-native operator-aware solver for the Poisson-class
+this is the operator-aware solver for the Poisson-class
 benchmark family.  Contract: PCG + one-V-cycle preconditioning converges
 in O(10) iterations INDEPENDENT of mesh size.
 """

@@ -21,9 +21,10 @@ from sparse_matrix_math_tpu.utils.generate import poisson_2d, random_spd_csr
 
 from conftest import inf_eps, l2_eps
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 (virtual) devices"
-)
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 (virtual) devices")
 
 
 @pytest.fixture(scope="module")
@@ -314,103 +315,13 @@ class TestDistDIA:
             distribute_dia(far, mesh)  # block is 32 rows < offset 200
 
 
-class TestDistWSell:
-    """Distributed W-SELL (parallel/dist_wsell.py): the general-pattern
-    Pallas path inside shard_map with the O(B) neighbor halo."""
-
-    def _matrix(self):
-        # banded-broken pattern: no DIA structure, fits the halo window
-        from sparse_matrix_math_tpu.utils.generate import laplace_3d_jittered
-
-        return laplace_3d_jittered(22, jitter=4, dtype=np.float64)  # n=10648
-
-    def test_spmv_parity(self, mesh):
-        from sparse_matrix_math_tpu.parallel import (
-            dist_wsell_spmv,
-            distribute_wsell,
-        )
-
-        csr = self._matrix()
-        d = distribute_wsell(csr, mesh)
-        rng = np.random.default_rng(0)
-        x = rng.standard_normal(csr.shape[0])
-        xs = distribute_vector(x, d, mesh)
-        y = collect(dist_wsell_spmv(d, xs, mesh), d)
-        want = np.asarray(csr @ jnp.asarray(x))
-        np.testing.assert_allclose(y, want, rtol=1e-10, atol=1e-10)
-
-    def test_solve_parity(self, mesh):
-        from sparse_matrix_math_tpu.parallel import (
-            dist_wsell_solve,
-            distribute_wsell,
-        )
-
-        csr = self._matrix()
-        # symmetrise so CG applies (keeps the banded-broken pattern)
-        from sparse_matrix_math_tpu.formats.csr import _csr_from_sorted_host
-
-        r = np.asarray(csr.row_ids, np.int64)
-        c = np.asarray(csr.indices, np.int64)
-        v = np.asarray(csr.data)
-        n = csr.shape[0]
-        rr = np.concatenate([r, c])
-        cc = np.concatenate([c, r])
-        vv = np.concatenate([v, v]) * 0.5
-        key = rr * n + cc
-        order = np.argsort(key, kind="stable")
-        key, rr, cc, vv = key[order], rr[order], cc[order], vv[order]
-        uniq = np.ones(key.shape[0], bool)
-        uniq[1:] = key[1:] != key[:-1]
-        grp = np.cumsum(uniq) - 1
-        vs = np.zeros(int(grp[-1]) + 1)
-        np.add.at(vs, grp, vv)
-        sym = _csr_from_sorted_host(rr[uniq], cc[uniq], vs, (n, n))
-
-        b = np.asarray(sym @ jnp.ones(n, jnp.float64))
-        d = distribute_wsell(sym, mesh)
-        res = dist_wsell_solve(d, b, solver="cg", epsilon=1e-10, mesh=mesh)
-        assert int(res.status) == SolverStatus.SUCCESS
-        x = collect(res.x, d)
-        np.testing.assert_allclose(x, 1.0, atol=1e-7)
-        single = smm.cg(sym, jnp.asarray(b), epsilon=1e-10)
-        assert int(res.iterations) == int(single.iterations)
-
-    def test_gmres_over_wsell(self, mesh):
-        """GMRES over the distributed W-SELL path (nonsymmetric core on
-        the general-pattern kernel — no symmetrisation needed)."""
-        from sparse_matrix_math_tpu.parallel import (
-            dist_wsell_solve,
-            distribute_wsell,
-        )
-
-        csr = self._matrix()
-        b = np.asarray(csr @ jnp.ones(csr.shape[0], jnp.float64))
-        d = distribute_wsell(csr, mesh)
-        res = dist_wsell_solve(d, b, solver="gmres", epsilon=1e-9,
-                               mesh=mesh)
-        assert int(res.status) == SolverStatus.SUCCESS
-        np.testing.assert_allclose(collect(res.x, d), 1.0, atol=1e-6)
-
-    @pytest.mark.slow
-    def test_rejects_long_range(self, mesh):
-        from sparse_matrix_math_tpu.formats.csr import csr_from_dense
-        from sparse_matrix_math_tpu.parallel import distribute_wsell
-
-        n = 9000
-        dense = np.eye(n)
-        dense[0, n - 1] = 1.0  # couples across the whole matrix
-        with pytest.raises(ValueError, match="neighbor window"):
-            distribute_wsell(csr_from_dense(dense), mesh)
-
-
 class TestMeshResolution:
     """Solve-time entry points derive their default mesh from the
     OPERAND's sharding, not from jax.devices() (parallel/mesh.py:
     resolve_mesh).  A process whose default device list differs from the
     build mesh — e.g. an accelerator plugin registered alongside the
     virtual-CPU mesh — used to shard_map an 8-shard operand over a
-    1-device axis and die with a broadcast error inside the local SpMV
-    (observed round 5 in the df64 dryrun path)."""
+    1-device axis and die with a broadcast error inside the local SpMV."""
 
     def test_solve_defaults_to_operand_mesh(self):
         # 4-device submesh: make_mesh() would default to all 8 devices

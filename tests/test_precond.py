@@ -186,11 +186,10 @@ def test_factory_parity_spellings():
     assert isinstance(get_preconditioner(a, "none"), IdentityPreconditioner)
 
 
-class TestPaddedSGS:
-    """PaddedSGS (precond/padded_sgs.py): the padded-DIA-domain SGS whose
-    truncated-sweep apply must match the generic CSR-based
-    SGSPreconditioner with the same sweep count bit-for-... well, to
-    float tolerance (same math, different layout/kernel)."""
+class TestDiaSGS:
+    """SGSPreconditioner.from_dia: SGS on DIA factors, whose
+    truncated-sweep apply must match the CSR-built SGSPreconditioner
+    with the same sweep count (same math, other storage)."""
 
     def _dia(self, nx=12, dtype=np.float64):
         from sparse_matrix_math_tpu.formats.dia import dia_from_csr
@@ -200,50 +199,65 @@ class TestPaddedSGS:
 
     @pytest.mark.parametrize("sweeps", [1, 2, 4])
     def test_apply_matches_generic_sgs(self, sweeps):
-        from sparse_matrix_math_tpu.precond import PaddedSGS
 
         a, dia = self._dia()
         generic = get_preconditioner(a, "sgs", method="jacobi", sweeps=sweeps)
-        padded = PaddedSGS.from_dia(dia, sweeps=sweeps)
+        p = SGSPreconditioner.from_dia(dia, sweeps=sweeps)
         r = jnp.asarray(
             np.random.default_rng(1).normal(size=a.shape[0])
         )
         np.testing.assert_allclose(
-            np.asarray(padded.apply(r)),
+            np.asarray(p.apply(r)),
             np.asarray(generic.apply(r)),
             rtol=1e-12, atol=1e-12,
         )
 
-    def test_padded_layout_roundtrip_zero_padding(self):
-        from sparse_matrix_math_tpu.precond import PaddedSGS
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_apply_matches_generic_sgs_nonsymmetric_panel(self, dtype):
+        from sparse_matrix_math_tpu.formats.dia import dia_from_csr
+        from sparse_matrix_math_tpu.utils.generate import (
+            convection_diffusion_2d,
+        )
 
-        _, dia = self._dia(9)
-        p = PaddedSGS.from_dia(dia, sweeps=2)
-        ref = p.p_lower
-        r = jnp.asarray(np.random.default_rng(2).normal(size=dia.shape[0]))
-        rp = ref.to_padded(r)
-        zp = p.apply_padded(rp, resident=True, interpret=True)
-        # padding regions must remain exactly zero through the apply
-        mask = np.asarray(ref.to_padded(jnp.ones_like(r)))
-        np.testing.assert_array_equal(np.asarray(zp)[mask == 0], 0.0)
+        a = convection_diffusion_2d(10, dtype=dtype)
+        generic = get_preconditioner(a, "sgs", method="jacobi", sweeps=3)
+        p = SGSPreconditioner.from_dia(dia_from_csr(a), sweeps=3)
+        r = jnp.asarray(
+            np.random.default_rng(4).normal(size=(a.shape[0], 3)).astype(dtype)
+        )
+        tol = 1e-5 if dtype == np.float32 else 1e-12
+        np.testing.assert_allclose(
+            np.asarray(p.apply(r)), np.asarray(generic.apply(r)),
+            rtol=tol, atol=tol,
+        )
 
     def test_requires_diagonal(self):
         from sparse_matrix_math_tpu.formats.dia import DIAMatrix
-        from sparse_matrix_math_tpu.precond import PaddedSGS
 
         off_diag = DIAMatrix(
             diags=jnp.ones((1, 8)), offsets=(1,), shape=(8, 8), nnz=7
         )
         with pytest.raises(FactorizationError):
-            PaddedSGS.from_dia(off_diag, sweeps=2)
+            SGSPreconditioner.from_dia(off_diag, sweeps=2)
+
+    def test_rejects_tiny_diagonal_and_zero_sweeps(self):
+        from sparse_matrix_math_tpu.formats.dia import DIAMatrix
+
+        tiny = DIAMatrix(
+            diags=jnp.full((1, 8), 1e-7), offsets=(0,), shape=(8, 8), nnz=8
+        )
+        with pytest.raises(FactorizationError):
+            SGSPreconditioner.from_dia(tiny)
+        _, dia = self._dia(4)
+        with pytest.raises(ValueError):
+            SGSPreconditioner.from_dia(dia, sweeps=0)
 
     def test_pure_diagonal_matrix(self):
         from sparse_matrix_math_tpu.formats.dia import DIAMatrix
-        from sparse_matrix_math_tpu.precond import PaddedSGS
 
         d = jnp.asarray(np.linspace(1.0, 2.0, 8))
         a = DIAMatrix(diags=d[None, :], offsets=(0,), shape=(8, 8), nnz=8)
-        p = PaddedSGS.from_dia(a, sweeps=3)
+        p = SGSPreconditioner.from_dia(a, sweeps=3)
         r = jnp.asarray(np.random.default_rng(3).normal(size=8))
         np.testing.assert_allclose(
             np.asarray(p.apply(r)), np.asarray(r / d), rtol=1e-12
@@ -271,8 +285,8 @@ def test_exact_deep_sweeps_warns():
 
 
 class TestChebyshevPreconditioner:
-    """Polynomial preconditioning (precond/cheby_poly.py) — TPU-native
-    addition: the apply is k SpMVs with A itself."""
+    """Polynomial preconditioning (precond/cheby_poly.py): the apply is
+    k SpMVs with A itself."""
 
     def test_apply_approximates_inverse(self):
         a = poisson_2d(12)
@@ -311,174 +325,6 @@ class TestChebyshevPreconditioner:
         np.testing.assert_allclose(lhs, rhs, rtol=1e-10, atol=1e-12)
 
 
-class TestFusedSGSApply:
-    """ops/pallas_trisweep.py: the fused halo-deep-sweep SGS apply must
-    match the compositional padded apply exactly (same math, one kernel)."""
-
-    @pytest.mark.parametrize("sweeps", [2, 4])
-    def test_matches_compositional(self, sweeps):
-        from sparse_matrix_math_tpu.formats.dia import dia_from_csr
-        from sparse_matrix_math_tpu.ops.pallas_trisweep import sgs_apply_fused
-        from sparse_matrix_math_tpu.precond import PaddedSGS
-
-        a = poisson_2d(40, dtype=np.float32)  # big enough for > 1 window
-        dia = dia_from_csr(a)
-        p = PaddedSGS.from_dia(dia, sweeps=sweeps)
-        ref_layout = p.p_lower
-        r = ref_layout.to_padded(
-            jnp.asarray(
-                np.random.default_rng(0)
-                .standard_normal(a.shape[0])
-                .astype(np.float32)
-            )
-        )
-        want = p.apply_padded(r, resident=True, interpret=True)
-        got = sgs_apply_fused(p, r, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5
-        )
-
-    def test_small_matrix_fallback(self):
-        from sparse_matrix_math_tpu.formats.dia import dia_from_csr
-        from sparse_matrix_math_tpu.ops.pallas_trisweep import sgs_apply_fused
-        from sparse_matrix_math_tpu.precond import PaddedSGS
-
-        a = poisson_2d(6, dtype=np.float64)
-        dia = dia_from_csr(a)
-        p = PaddedSGS.from_dia(dia, sweeps=3)
-        r = p.p_lower.to_padded(jnp.ones(a.shape[0], jnp.float64))
-        want = p.apply_padded(r, resident=True, interpret=True)
-        got = sgs_apply_fused(p, r, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-12)
-
-    def test_no_subdiagonal_matrix(self):
-        """Regression (round-2 review): a DIA matrix with no sub-diagonal
-        used to get a padded layout with no leading guard block, so the
-        fused kernel's first window rows were REAL rows that never
-        received sweep updates — silently wrong first ~1024 entries."""
-        import jax.numpy as jnp
-
-        from sparse_matrix_math_tpu.formats.dia import DIAMatrix
-        from sparse_matrix_math_tpu.ops.pallas_trisweep import sgs_apply_fused
-        from sparse_matrix_math_tpu.precond import PaddedSGS
-
-        n = 200_000
-        rng = np.random.default_rng(0)
-        diags = jnp.asarray(
-            np.stack([
-                rng.uniform(2.0, 3.0, n),          # main
-                rng.uniform(-1.0, -0.5, n),        # +1 super-diagonal
-            ]).astype(np.float32)
-        )
-        a = DIAMatrix(diags=diags, offsets=(0, 1), shape=(n, n), nnz=2 * n - 1)
-        p = PaddedSGS.from_dia(a, sweeps=4)
-        ref_layout = p.p_upper
-        r = ref_layout.to_padded(
-            jnp.asarray(rng.standard_normal(n).astype(np.float32))
-        )
-        want = p.apply_padded(r, resident=True, interpret=True)
-        got = sgs_apply_fused(p, r, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5
-        )
-
-
-class TestPaddedTriPair:
-    """IC0/ILU0 factor pairs in the padded DIA domain
-    (precond/padded_tri.py + ops/pallas_trisweep.py tri_pair_apply_fused)."""
-
-    def _setup(self, kind, sweeps=4, nx=40):
-        from sparse_matrix_math_tpu.formats.dia import dia_from_csr
-        from sparse_matrix_math_tpu.precond import PaddedTriPair
-
-        a = poisson_2d(nx, dtype=np.float32)
-        dia = dia_from_csr(a)
-        pre = get_preconditioner(a, kind, method="jacobi", sweeps=sweeps)
-        pair = PaddedTriPair.from_factors(pre.lower, pre.upper, dia)
-        return a, dia, pre, pair
-
-    @pytest.mark.parametrize("kind", ["ic0", "ilu0"])
-    def test_fused_matches_compositional_and_generic(self, kind):
-        a, dia, pre, pair = self._setup(kind)
-        ref = pair.p_lower if pair.p_lower is not None else pair.p_upper
-        r1 = jnp.asarray(
-            np.random.default_rng(0).standard_normal(a.shape[0]).astype(np.float32)
-        )
-        rp = ref.to_padded(r1)
-        comp = pair.apply_padded_compositional(rp, interpret=True)
-        fused = pair.apply_padded(rp, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(fused), np.asarray(comp), rtol=2e-5, atol=2e-5
-        )
-        # and the padded apply must match the GENERIC trisolve apply
-        got = ref.from_padded(fused)
-        want = pre.apply(r1)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=2e-4, atol=2e-4
-        )
-
-    def test_pcg_ic0_padded_converges(self):
-        a, dia, pre, pair = self._setup("ic0", sweeps=8, nx=24)
-        b = a @ jnp.ones(a.shape[0], jnp.float32)
-        res = cg(a, b, epsilon=1e-5, preconditioner=pre)
-        assert res.status_enum() == SolverStatus.SUCCESS
-
-
-class TestWSellStrictLayout:
-    """Jacobi-sweep triangular applies with the strict part in the
-    W-SELL Pallas layout (general-pattern production path) must match
-    the take/segment_sum strict SpMV bit-for-logic."""
-
-    @pytest.mark.parametrize("kind", ["sgs", "ic0", "ilu0"])
-    def test_apply_matches_csr_strict(self, kind):
-        # dense enough strict pattern that the W-SELL slot-ratio cap
-        # accepts it (poisson_2d 48x48 -> n=2304, ~2 strict nnz/row/side)
-        a = poisson_2d(48, dtype=np.float32)
-        pre_ws = get_preconditioner(
-            a, kind, method="jacobi", sweeps=4, strict_layout="wsell"
-        )
-        pre_cs = get_preconditioner(
-            a, kind, method="jacobi", sweeps=4, strict_layout="csr"
-        )
-        tri = pre_ws.fwd if kind == "sgs" else pre_ws.lower
-        assert tri.wsell is not None, "strict pattern should pack"
-        r = jnp.asarray(
-            np.random.default_rng(1).standard_normal(a.shape[0]).astype(
-                np.float32
-            )
-        )
-        np.testing.assert_allclose(
-            np.asarray(pre_ws.apply(r)), np.asarray(pre_cs.apply(r)),
-            rtol=2e-5, atol=2e-5,
-        )
-
-    @pytest.mark.slow
-    def test_apply_matches_panel(self):
-        a = poisson_2d(48, dtype=np.float32)
-        pre = get_preconditioner(
-            a, "sgs", method="jacobi", sweeps=3, strict_layout="wsell"
-        )
-        r = jnp.asarray(
-            np.random.default_rng(2).standard_normal(
-                (a.shape[0], 3)
-            ).astype(np.float32)
-        )
-        cols = jnp.stack([pre.apply(r[:, j]) for j in range(3)], axis=1)
-        np.testing.assert_allclose(
-            np.asarray(pre.apply(r)), np.asarray(cols), rtol=2e-5, atol=2e-5
-        )
-
-    def test_pcg_sgs_wsell_converges(self):
-        a = poisson_2d(40, dtype=np.float32)
-        pre = get_preconditioner(
-            a, "sgs", method="jacobi", sweeps=6, strict_layout="wsell"
-        )
-        b = a @ jnp.ones(a.shape[0], jnp.float32)
-        res = cg(a, b, epsilon=1e-5, preconditioner=pre)
-        assert res.status_enum() == SolverStatus.SUCCESS
-        assert float(jnp.max(jnp.abs(res.x - 1.0))) < 1e-3
-
-
 class TestIlu0PivotShift:
     """Data-dependent zero pivots (VERDICT r4 #6): ILU(0) elimination can
     hit an exact or near-zero pivot on a perfectly nonsingular matrix.
@@ -514,19 +360,13 @@ class TestIlu0PivotShift:
         assert pre.shift == 0.0
 
     def test_jittered_tiled_sherman1_factors(self):
-        """The exact system class the round-4 bench had to curate around
-        (BENCH_NOTES 'jittered values break ILU0'): jittered tiled
-        sherman1 hits a data-dependent zero pivot unshifted; the
-        escalation factors it with a finite, bounded factor."""
-        from sparse_matrix_math_tpu.precond._factorize import (
-            ilu0_factorize_host,
-        )
-        from sparse_matrix_math_tpu.utils.generate import sherman1_tiled
+        """A jittered reservoir-class system (values moved off the
+        pattern they were computed for, the class where unshifted ILU0
+        can meet data-dependent zero pivots): the factorization ends
+        with a finite shift and a finite apply."""
+        from sparse_matrix_math_tpu.utils.generate import reservoir_3d
 
-        a = sherman1_tiled(4, jitter=True, dtype=np.float64)
-        data = np.asarray(a.data, np.float64)
-        ind = np.asarray(a.indices, np.int64)
-        ptr = np.asarray(a.indptr, np.int64)
+        a = reservoir_3d(16, jitter=True, sigma=2.0)
         pre = ILU0Preconditioner.from_matrix(a, method="jacobi", sweeps=6)
         assert np.isfinite(pre.shift)
         # the factor the apply uses is finite everywhere

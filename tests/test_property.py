@@ -121,13 +121,13 @@ def test_preconditioners_preserve_solution(sys_pair):
     st.floats(min_value=0.005, max_value=0.2),
 )
 @pytest.mark.slow
-def test_wsell_matches_csr_spmv(n_scale, seed, density):
-    """W-SELL colouring + kernel must reproduce the CSR SpMV for random
-    patterns of any density it accepts (refusals are allowed — that is
-    the documented contract for tile-sparse patterns)."""
+def test_ell_hyb_match_csr_spmv(n_scale, seed, density):
+    """ELL and HYB must reproduce the CSR SpMV for random patterns of
+    any density."""
     import jax.numpy as jnp
 
-    from sparse_matrix_math_tpu.formats.wsell import wsell_from_csr
+    from sparse_matrix_math_tpu.formats.ell import ell_from_csr
+    from sparse_matrix_math_tpu.formats.hyb import hyb_from_csr
     from sparse_matrix_math_tpu.ops.spmv import rmult
 
     n = 40 * n_scale  # 80 .. 2400 (crosses slab/window boundaries)
@@ -144,12 +144,9 @@ def test_wsell_matches_csr_spmv(n_scale, seed, density):
     from sparse_matrix_math_tpu.formats.csr import _csr_from_sorted_host
 
     csr = _csr_from_sorted_host(r[uniq], c[uniq], v[uniq], (n, n))
-    try:
-        ws = wsell_from_csr(csr, max_slot_ratio=64.0)
-    except ValueError:
-        return  # pattern refused — acceptable
     x = jnp.asarray(rng.standard_normal(n))
-    np.testing.assert_allclose(
-        np.asarray(rmult(ws, x)), np.asarray(rmult(csr, x)),
-        rtol=1e-9, atol=1e-9,
-    )
+    for op in (ell_from_csr(csr), hyb_from_csr(csr)):
+        np.testing.assert_allclose(
+            np.asarray(rmult(op, x)), np.asarray(rmult(csr, x)),
+            rtol=1e-9, atol=1e-9,
+        )

@@ -1,6 +1,6 @@
 """RCM reordering pipeline (formats/reorder.py): scattered patterns are
-renumbered onto the W-SELL fast path; solvers hoist the permutation out
-of their loops."""
+renumbered to a narrow band; solvers hoist the permutation out of their
+loops."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +13,7 @@ from sparse_matrix_math_tpu.formats.reorder import (
     _rcm_numpy,
     permute_csr,
     rcm_permutation,
-    reorder_to_wsell,
+    reorder_rcm,
 )
 from sparse_matrix_math_tpu.solvers.types import SolverStatus
 from sparse_matrix_math_tpu.utils.generate import poisson_2d
@@ -88,8 +88,9 @@ class TestPermutation:
 class TestReorderedMatrix:
     def test_rmult_acts_as_original(self):
         a = _shuffle(poisson_2d(16, dtype=np.float32), seed=5)
-        ro = reorder_to_wsell(a)
-        assert ro is not None
+        ro = reorder_rcm(a)
+        assert isinstance(ro.inner, CSRMatrix)
+        assert _bandwidth(ro.inner) < _bandwidth(a)
         x = jnp.asarray(
             np.random.default_rng(6).standard_normal(256).astype(np.float32)
         )
@@ -102,7 +103,7 @@ class TestReorderedMatrix:
         solution and iteration count as cg on the raw CSR (the whole
         Krylov loop runs in the permuted domain)."""
         a = _shuffle(poisson_2d(16, dtype=np.float64), seed=7)
-        ro = reorder_to_wsell(a)
+        ro = reorder_rcm(a)
         b = a @ jnp.ones(256)
         r1 = smm.cg(ro, b, epsilon=1e-10)
         r2 = smm.cg(a, b, epsilon=1e-10)
@@ -112,10 +113,7 @@ class TestReorderedMatrix:
 
     def test_bicgstab_and_multi_rhs(self):
         a = _shuffle(poisson_2d(12, dtype=np.float64), seed=8)
-        # tiny test matrix: vreg quantisation dominates the slot ratio,
-        # lift the cap (production sizes amortise it)
-        ro = reorder_to_wsell(a, max_slot_ratio=64)
-        assert ro is not None
+        ro = reorder_rcm(a)
         b = a @ jnp.ones(144)
         rb = smm.bicgstab(ro, b, epsilon=1e-10)
         assert int(rb.status) == SolverStatus.SUCCESS
@@ -124,27 +122,15 @@ class TestReorderedMatrix:
         rm = smm.cg_multi(ro, bs, epsilon=1e-10)
         np.testing.assert_allclose(np.asarray(rm.x[:, 1]), 2.0, atol=1e-7)
 
-    def test_best_format_reorders_shuffled_banded(self):
-        # big enough that the shuffle spans many (slab, window) tiles:
-        # the raw pattern pads heavily (the first-fit colourer builds it,
-        # but loosely), and RCM recovers the band — best_format must pick
-        # the reordered layout when its slot_ratio is clearly lower
-        a = _shuffle(poisson_2d(90, dtype=np.float32), seed=9)
-        from sparse_matrix_math_tpu.formats.wsell import try_wsell_from_csr
-
-        raw = try_wsell_from_csr(a)
-        bf = smm.best_format(a)
-        assert isinstance(bf, ReorderedMatrix)
-        if raw is not None:  # ratio-aware selection: reordering must clearly win
-            assert bf.inner.slot_ratio < 0.7 * raw.slot_ratio
-        # opt-out keeps the un-reordered layout (raw W-SELL or CSR)
-        no_reorder = smm.best_format(a, allow_reorder=False)
-        assert not isinstance(no_reorder, ReorderedMatrix)
+    def test_best_format_keeps_csr_for_shuffled_pattern(self):
+        # a shuffled stencil has no diagonal structure left: best_format
+        # keeps it on CSR (reordering is an explicit choice, reorder_rcm)
+        a = _shuffle(poisson_2d(30, dtype=np.float32), seed=9)
+        assert smm.best_format(a) is a
 
     def test_solve_api_with_reordered(self):
         a = _shuffle(poisson_2d(16, dtype=np.float64), seed=10)
-        ro = reorder_to_wsell(a, max_slot_ratio=64)
-        assert ro is not None
+        ro = reorder_rcm(a)
         b = a @ jnp.ones(256)
         res = smm.solve(ro, b, method="cg", epsilon=1e-10)
         assert int(res.status) == SolverStatus.SUCCESS
@@ -155,112 +141,3 @@ class TestReorderedMatrix:
         assert int(rp.status) == SolverStatus.SUCCESS
         assert int(rp.iterations) <= int(res.iterations) + 1
         np.testing.assert_allclose(np.asarray(rp.x), 1.0, atol=1e-8)
-
-
-class TestAutoRoute:
-    """Default-path safety: cg(csr, b) at scale must not silently run the
-    XLA gather path on TPU (VERDICT r2 item 6).  Forced on here via
-    SMM_FORCE_AUTOROUTE so the CPU suite exercises the policy."""
-
-    def _big_banded_csr(self, n=4096, half_bw=2):
-        # diagonally-structured pattern at scale -> DIA-routable
-        from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-        return poisson_2d(64)  # 4096 rows, but nnz < 100k — see below
-
-    def test_small_matrix_untouched(self, monkeypatch):
-        monkeypatch.setenv("SMM_FORCE_AUTOROUTE", "1")
-        from sparse_matrix_math_tpu.formats import auto_route_for_solve
-        from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-        a = poisson_2d(16)
-        assert auto_route_for_solve(a) is a
-
-    def test_stencil_routes_to_dia_and_caches(self, monkeypatch):
-        monkeypatch.setenv("SMM_FORCE_AUTOROUTE", "1")
-        from sparse_matrix_math_tpu.formats import auto_route_for_solve
-        from sparse_matrix_math_tpu.formats.dia import DIAMatrix
-        from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-        a = poisson_2d(160)  # 25600 rows, ~127k nnz: above both thresholds
-        routed = auto_route_for_solve(a)
-        assert isinstance(routed, DIAMatrix)
-        assert auto_route_for_solve(a) is routed  # cached
-
-    def test_solver_entry_routes_and_solves(self, monkeypatch):
-        monkeypatch.setenv("SMM_FORCE_AUTOROUTE", "1")
-        import sparse_matrix_math_tpu as smm
-        from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-        a = poisson_2d(160)
-        b = a @ jnp.ones(160 * 160, a.dtype)
-        res = smm.cg(a, b, epsilon=1e-8)
-        assert int(res.status) == 0
-        np.testing.assert_allclose(np.asarray(res.x), 1.0, atol=1e-6)
-
-    def test_unrouteable_pattern_warns(self, monkeypatch):
-        monkeypatch.setenv("SMM_FORCE_AUTOROUTE", "1")
-        import warnings
-
-        import sparse_matrix_math_tpu as smm
-        from sparse_matrix_math_tpu.formats import auto_route_for_solve
-        from sparse_matrix_math_tpu.formats.csr import csr_from_coo
-        from sparse_matrix_math_tpu.formats.triplet import coo_from_arrays
-
-        # uniform-random pattern: no windowed layout at ratio<=8, RCM
-        # can't help — expect the loud warning and an unchanged operator
-        rng = np.random.default_rng(0)
-        n, per_row = 32768, 4
-        rows = np.repeat(np.arange(n), per_row)
-        cols = rng.integers(0, n, n * per_row)
-        # dedupe to keep CSR construction happy
-        key = rows.astype(np.int64) * n + cols
-        key = np.unique(key)
-        rows, cols = (key // n).astype(np.int64), (key % n).astype(np.int64)
-        vals = rng.standard_normal(rows.size)
-        a = csr_from_coo(coo_from_arrays(rows, cols, vals, (n, n)))
-        assert a.nnz >= 100_000
-        with warnings.catch_warnings(record=True) as w:
-            warnings.simplefilter("always")
-            routed = auto_route_for_solve(a)
-        assert routed is a
-        assert any(
-            issubclass(x.category, smm.PerformanceWarning) for x in w
-        )
-
-    def test_opt_out(self, monkeypatch):
-        monkeypatch.setenv("SMM_FORCE_AUTOROUTE", "1")
-        monkeypatch.setenv("SMM_NO_AUTOROUTE", "1")
-        from sparse_matrix_math_tpu.formats import auto_route_for_solve
-        from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-        a = poisson_2d(160)
-        assert auto_route_for_solve(a) is a
-
-    def test_preconditioner_blocks_permuting_route(self, monkeypatch):
-        """With a bound preconditioner the auto-route must not permute the
-        domain (the factor was built in the original ordering)."""
-        monkeypatch.setenv("SMM_FORCE_AUTOROUTE", "1")
-        from sparse_matrix_math_tpu.formats import auto_route_for_solve
-        from sparse_matrix_math_tpu.formats.reorder import ReorderedMatrix
-        from sparse_matrix_math_tpu.utils.generate import poisson_2d
-
-        # shuffle a stencil so DIA/W-SELL fail raw but RCM succeeds
-        a = poisson_2d(160)
-        rng = np.random.default_rng(1)
-        perm = rng.permutation(a.shape[0])
-        from sparse_matrix_math_tpu.formats.reorder import permute_csr
-
-        shuffled = permute_csr(a, perm)
-        routed_free = auto_route_for_solve(shuffled)
-        # with a preconditioner bound, no permuting route is allowed; no
-        # other layout fits a shuffled stencil, so the documented loud
-        # PerformanceWarning fires and the CSR path is kept
-        from sparse_matrix_math_tpu import PerformanceWarning
-
-        with pytest.warns(PerformanceWarning):
-            routed_pre = auto_route_for_solve(
-                shuffled, has_preconditioner=True
-            )
-        if isinstance(routed_free, ReorderedMatrix):
-            assert not isinstance(routed_pre, ReorderedMatrix)

@@ -88,7 +88,7 @@ class TestBreakdownPaths:
 
 class TestDeterminism:
     """XLA reductions have a fixed order per compiled program, so repeated
-    runs must be bit-identical (the TPU equivalent of the reference's
+    runs must be bit-identical (the equivalent of the reference's
     parallel_deterministic_reduce guarantee, h:305-328)."""
 
     def test_cg_bitwise_reproducible(self, dtype):

@@ -124,8 +124,8 @@ def test_rmult_under_jit_and_grad():
 
 
 class TestSpMM:
-    """Multi-column SpMM (y = A @ X, X (n, k)) across all formats — a
-    TPU-native extension (block-Krylov building block)."""
+    """Multi-column SpMM (y = A @ X, X (n, k)) across all formats — an
+    extension (block-Krylov building block)."""
 
     @pytest.mark.parametrize("k", [1, 3, 8])
     def test_all_formats(self, k, dtype):

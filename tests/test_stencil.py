@@ -148,64 +148,3 @@ def test_auto_format_keeps_dia_for_dia_features():
         epsilon=1e-3,
     )
     assert res.status_enum() == smm.SolverStatus.SUCCESS
-
-
-class TestHbmRegimeDriver:
-    """The host-driven big-n CG path (solvers/_stencil.py _cg_hbm):
-    above _HBM_REGIME_BYTES per vector the outer verify loop runs on
-    the host so the inner recurrence's jit receives its carries as
-    ARGUMENTS — the program shape XLA's memory-space assignment pins
-    the stencil operand in VMEM for (measured 0.65 vs 1.15 ms/iter at
-    243^3 on TPU v5e).  Same contract as cg_core; these tests force the
-    path on small grids and pin the parity."""
-
-    def _sys(self, dtype=np.float32):
-        st = try_grid_stencil_from_csr(poisson_2d(48, dtype=dtype))
-        b = st @ jnp.ones((st.shape[0],), st.dtype)
-        return st, b
-
-    def test_parity_with_cg_core(self, monkeypatch):
-        from sparse_matrix_math_tpu.solvers import _stencil
-
-        st, b = self._sys()
-        ref = smm.cg(st, b, epsilon=1e-5, max_iterations=4000,
-                     record_residuals=True)
-        monkeypatch.setattr(_stencil, "_HBM_REGIME_BYTES", 0)
-        hbm = smm.cg(st, b, epsilon=1e-5, max_iterations=4000,
-                     record_residuals=True)
-        assert int(hbm.status) == int(ref.status) == 0
-        assert abs(int(hbm.iterations) - int(ref.iterations)) <= 2
-        np.testing.assert_allclose(
-            np.asarray(hbm.x), np.asarray(ref.x), atol=1e-4
-        )
-        assert np.isclose(
-            np.asarray(hbm.residual_trace)[0],
-            np.asarray(ref.residual_trace)[0],
-        )
-
-    def test_floor_and_edge_cases(self, monkeypatch):
-        from sparse_matrix_math_tpu.solvers import _stencil
-
-        monkeypatch.setattr(_stencil, "_HBM_REGIME_BYTES", 0)
-        st, b = self._sys()
-        floored = smm.cg(st, b, epsilon=1e-12, max_iterations=4000)
-        assert int(floored.status) == smm.SolverStatus.MAX_ITERATIONS_REACHED
-        assert bool(floored.floor_hit)
-        capped = smm.cg(st, b, epsilon=1e-5, max_iterations=0)
-        assert int(capped.status) == smm.SolverStatus.MAX_ITERATIONS_REACHED
-        assert int(capped.iterations) == 0 and not bool(capped.floor_hit)
-        zero = smm.cg(st, jnp.zeros_like(b), epsilon=1e-5)
-        assert int(zero.status) == smm.SolverStatus.SUCCESS
-        assert int(zero.iterations) == 0
-
-    def test_f64_packed_readback_precision(self, monkeypatch):
-        """The packed scalar readback bitcasts at the residual's OWN
-        width — an f64 solve must deliver f64-level residuals through
-        the host driver (the f32-packed form would floor at ~1e-7)."""
-        from sparse_matrix_math_tpu.solvers import _stencil
-
-        monkeypatch.setattr(_stencil, "_HBM_REGIME_BYTES", 0)
-        st, b = self._sys(np.float64)
-        res = smm.cg(st, b, epsilon=1e-10, max_iterations=4000)
-        assert int(res.status) == smm.SolverStatus.SUCCESS
-        assert float(res.residual_norm) <= 1e-10
